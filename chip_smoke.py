@@ -1,0 +1,494 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (src/repro_torch) on one GPU.
+
+    python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --profile  # + a timed and a profiled FL round
+
+Phases, each fatal on failure:
+  1. the card's name and power limit; build the CUDA kernels from
+     src/repro_torch/csrc (timed as set-up); launch the probe kernel;
+  2. every kernel against its plain PyTorch version on the card, with its
+     time (CUDA events, median), its plain version's time, a library
+     yardstick where one PyTorch call computes the same function, and its
+     bound on the H100;
+  3. the wireless engine at Monte-Carlo scale (B=64, N=10,000, K=128),
+     checked for its invariants and against the same engine on the CPU;
+  4. the FL round on a small model, card against CPU (the reference);
+  5. the main path: ``FLServer`` at the full width of smollm-135M in bf16,
+     50 clients, 10 slots, 3 rounds each evaluated, with every kernel's
+     launch count set to 0 just before and read just after.
+
+With ``--profile`` it then times the stages of one more FL round and
+traces another with ``torch.profiler``. It prints a ``{"kernels": [...]}``
+line, the ``nvidia-smi`` name and power limit, and last
+``{"ok": true, "device": {...}}``. Details go to
+chiprun_out/chip_smoke.json. Without a CUDA card, or without the
+repository beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+
+PAIR_TOL = dict(rtol=1e-6, atol=1e-9)
+# both sides accumulate in fp32 from the same inputs, so bf16 takes a
+# tolerance that a kernel accumulating in bf16 would miss
+FEDAGG_TOL = {"float32": 1e-6, "bfloat16": 1e-5}
+PAIR_OPS = 23            # fp32 operations per element (csrc/pairscore.cu)
+FL_ROUNDS = 3
+SMOLLM_PARAMS = 134_515_008
+
+RESULT: dict = {}
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, ops / PEAK_FP32_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(torch, fn, *, reps: int = 20, runs: int = 7) -> float:
+    """Median over ``runs`` of the mean device time of ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def max_err(torch, out, ref) -> float:
+    return max(float((o.float() - r.float()).abs().max()) if o.numel()
+               else 0.0 for o, r in zip(out, ref))
+
+
+# ---------------------------------------------------------------------------
+# phase 1-2: build, probe, kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def phase_probe(torch, dev, kinfo):
+    from repro_torch.kernels import backend
+    x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128)
+    y = backend.probe_kernel(x)
+    torch.cuda.synchronize()
+    ref = backend.probe_plain(x)
+    if not torch.equal(y, ref):
+        raise AssertionError("probe_kernel disagrees with x + 1")
+    b_ms, b_by = bound(2 * x.numel() * 4, x.numel())
+    kinfo["probe_kernel"] = dict(
+        max_abs_err=max_err(torch, [y], [ref]),
+        ms=time_ms(torch, lambda: backend.probe_kernel(x)),
+        plain_ms=time_ms(torch, lambda: backend.probe_plain(x)),
+        library_ms=time_ms(torch, lambda: torch.add(x, 1.0)),
+        bound_ms=b_ms, bound_by=b_by, tolerance="exact", shape=[8, 128])
+
+
+def pair_inputs(torch, dev, shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g_i = torch.rand(shape, generator=gen, device=dev) * 1e-9 + 1e-16
+    g_j = torch.minimum(g_i, torch.rand(shape, generator=gen,
+                                        device=dev) * 1e-9 + 1e-16)
+    return g_i, g_j
+
+
+def phase_pairscore(torch, dev, kinfo):
+    from repro_torch.kernels import pairscore as P
+    kw = dict(n0b=1e-14, pmax=0.2, bw=1e6)
+    errs = {}
+    for shape in [(1, 5), (256, 128), (1,), (7,), (1025,)]:
+        for oma in (False, True):
+            g_i, g_j = pair_inputs(torch, dev, shape, sum(shape))
+            out = P.pairscore(g_i, g_j, oma=oma, **kw)
+            ref = P.pair_math(g_i, g_j, oma=oma, **kw)
+            torch.cuda.synchronize()
+            for o, r in zip(out, ref):
+                torch.testing.assert_close(o, r, **PAIR_TOL)
+            errs[f"{shape}{'/oma' if oma else ''}"] = max_err(torch, out,
+                                                               ref)
+    log(f"pairscore agrees with its plain version (rtol 1e-6, atol 1e-9): "
+        f"{errs}")
+    timings = {}
+    for name, shape in (("fl", (1, 5)), ("montecarlo", (256, 128))):
+        g_i, g_j = pair_inputs(torch, dev, shape, 7)
+        n = g_i.numel()
+        b_ms, b_by = bound(24 * n, PAIR_OPS * n)
+        timings[name] = dict(
+            shape=list(shape),
+            ms=time_ms(torch, lambda: P.pairscore(g_i, g_j, **kw)),
+            plain_ms=time_ms(torch, lambda: P.pair_math(g_i, g_j, **kw)),
+            bound_ms=b_ms, bound_by=b_by)
+        log(f"pairscore {shape}: {timings[name]}")
+    fl = timings["fl"]
+    kinfo["pairscore"] = dict(
+        max_abs_err=max(errs[k] for k in ("(1, 5)", "(1, 5)/oma")),
+        ms=fl["ms"], plain_ms=fl["plain_ms"], library_ms=None,
+        bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
+        tolerance="rtol 1e-6, atol 1e-9", shape=fl["shape"],
+        at_montecarlo_shape=timings["montecarlo"])
+
+
+def phase_fedagg(torch, dev, kinfo):
+    from repro_torch.kernels import fedagg as F
+    gen = torch.Generator(device=dev).manual_seed(0)
+    checks = {}
+    # bf16, and odd tails on both the vector and the one-element path
+    wide = torch.randn(3, 1032, generator=gen, device=dev)
+    cases = {
+        "bf16 (10, 4000000)": torch.randn(10, 4_000_000, generator=gen,
+                                          device=dev).to(torch.bfloat16),
+        "bf16 (10, 1000003)": torch.randn(10, 1_000_003, generator=gen,
+                                          device=dev).to(torch.bfloat16),
+        "fp32 (3, 1027) unaligned": torch.randn(3, 1027, generator=gen,
+                                                device=dev),
+        "fp32 (3, 1027) row slice": wide[:, :1027],
+    }
+    for name, u in cases.items():
+        w = torch.rand(u.shape[0], generator=gen, device=dev)
+        tol = FEDAGG_TOL[str(u.dtype).split(".")[1]]
+        out, ref = F.fedagg(u, w), F.fedagg_plain(u, w)
+        torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+        checks[name] = max_err(torch, [out], [ref])
+    del cases, wide
+    # one FL round of smollm-135M: C = 10 client rows of every parameter
+    c, n = 10, SMOLLM_PARAMS
+    u = torch.randn(c, n, generator=gen, device=dev)
+    w = torch.rand(c, generator=gen, device=dev)
+    w = w / w.sum()
+    out, ref = F.fedagg(u, w), F.fedagg_plain(u, w)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+    checks[f"fp32 ({c}, {n})"] = err = max_err(torch, [out], [ref])
+    log(f"fedagg agrees with its plain version (fp32 1e-6, bf16 1e-5): "
+        f"{checks}")
+    del out, ref
+    b_ms, b_by = bound(c * n * 4 + c * 4 + n * 4, 2 * c * n)
+    kinfo["fedagg"] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: F.fedagg(u, w), reps=10, runs=5),
+        plain_ms=time_ms(torch, lambda: F.fedagg_plain(u, w), reps=3,
+                         runs=5),
+        library_ms=time_ms(torch, lambda: torch.mv(u.t(), w), reps=10,
+                           runs=5),
+        bound_ms=b_ms, bound_by=b_by, tolerance="fp32 1e-6, bf16 1e-5",
+        shape=[c, n], checks=checks)
+    log(f"fedagg ({c}, {n}) fp32: {kinfo['fedagg']}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: engine at Monte-Carlo scale
+# ---------------------------------------------------------------------------
+
+
+def make_batch(rng, drops, n, ncfg):
+    """The benchmarks/engine_throughput.py recipe, numpy rng only."""
+    from repro_torch.core import noma
+    import numpy as np
+    dist = np.stack([noma.sample_distances(rng, n, ncfg)
+                     for _ in range(drops)])
+    gains = np.stack([noma.sample_gains(rng, dist[b], ncfg)
+                      for b in range(drops)])
+    n_samples = rng.uniform(100, 1000, (drops, n))
+    cpu_freq = rng.uniform(0.5e9, 2e9, (drops, n))
+    ages = rng.integers(1, 30, (drops, n)).astype(float)
+    return gains, n_samples, cpu_freq, ages
+
+
+def phase_engine(torch, dev):
+    import numpy as np
+    from repro_torch.configs import FLConfig, NOMAConfig
+    from repro_torch.core.engine import WirelessEngine
+    b, n, k = 64, 10_000, 128
+    ncfg = NOMAConfig(n_subchannels=k)
+    batch = make_batch(np.random.default_rng(0), b, n, ncfg)
+    eng = WirelessEngine(ncfg, FLConfig(), device=dev)
+    out = eng.schedule_batch(*batch, 1e6)
+    torch.cuda.synchronize()
+    c = 2 * k
+    if not bool((out.selected.sum(1) == c).all()):
+        raise AssertionError("engine did not select exactly c per row")
+    tot = torch.where(out.selected, out.t_cmp + out.t_com, 0.0)
+    torch.testing.assert_close(out.t_round, tot.max(1).values, rtol=1e-6,
+                               atol=0.0)
+    if not bool((out.powers <= ncfg.max_power_w).all()):
+        raise AssertionError("a power exceeds P_max")
+    cpu = WirelessEngine(ncfg, FLConfig(), device="cpu").schedule_batch(
+        *batch, 1e6)
+    for f in ("selected", "pair_strong", "pair_weak"):
+        if not torch.equal(getattr(out, f).cpu(), getattr(cpu, f)):
+            raise AssertionError(f"engine {f} differs card vs CPU")
+    torch.testing.assert_close(out.rates.cpu(), cpu.rates, rtol=1e-5,
+                               atol=0.0)
+    torch.testing.assert_close(out.t_round.cpu(), cpu.t_round, rtol=1e-5,
+                               atol=0.0)
+    times = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        eng.schedule_batch(*batch, 1e6)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    RESULT["engine"] = dict(B=b, N=n, K=k, c=c,
+                            batch_ms=statistics.median(times) * 1e3,
+                            drops_per_s=b / statistics.median(times))
+    log(f"engine B={b} N={n} K={k}: c per row, t_round, P_max and card == "
+        f"CPU hold; {RESULT['engine']}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4-5: the FL round
+# ---------------------------------------------------------------------------
+
+
+SMALL = dict(d_model=32, d_ff=64, vocab_size=32)
+
+
+def small_fl(device, state, rounds=2):
+    """A 2-layer, 32-wide FL run from the initial weights ``state`` (CPU
+    and CUDA generators draw different numbers from one seed)."""
+    from repro_torch.configs import FLConfig, NOMAConfig, get_config
+    from repro_torch.data import TaskConfig
+    from repro_torch.fl import FLServer
+    cfg = dataclasses.replace(get_config("smollm_135m").reduced(), **SMALL)
+    srv = FLServer(cfg, FLConfig(n_clients=8, local_batch=8, lr=0.2,
+                                 samples_per_client=(24, 48)),
+                   NOMAConfig(n_subchannels=2),
+                   TaskConfig(vocab_size=32, n_topics=4, seq_len=17),
+                   eval_every=1, device=device)
+    srv.model.load_state_dict(state)
+    return srv.run(rounds)
+
+
+def phase_small_fl(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(get_config("smollm_135m").reduced(), **SMALL)
+    state = zoo.init_model(cfg, seed=0, device="cpu").state_dict()
+    h_cpu = small_fl("cpu", state)
+    h_card = small_fl(dev, state)
+    if h_card.n_selected != h_cpu.n_selected or not (
+            h_card.participation == h_cpu.participation).all():
+        raise AssertionError("small FL run selects differently on the card")
+    for a, b in zip(h_card.loss, h_cpu.loss):
+        if not math.isclose(a, b, rel_tol=1e-3):
+            raise AssertionError(f"small FL loss card {a} vs CPU {b}")
+    for a, b in zip(h_card.round_time, h_cpu.round_time):
+        if not math.isclose(a, b, rel_tol=1e-4):
+            raise AssertionError(f"round time card {a} vs CPU {b}")
+    log(f"small FL run: card == CPU (selections, loss rtol 1e-3); "
+        f"loss {h_card.loss}")
+
+
+def phase_main_path(torch, dev):
+    from repro_torch import kernels
+    from repro_torch.configs import FLConfig, NOMAConfig, get_config
+    from repro_torch.data import TaskConfig
+    from repro_torch.fl import FLServer
+    from repro_torch.kernels import backend
+
+    cfg = get_config("smollm_135m")
+    fl = FLConfig(n_clients=50, samples_per_client=(64, 128),
+                  local_batch=32)
+    # counts to 0, and the once-per-process probe forgotten, just before
+    # the main path: it runs as in a fresh process
+    backend.probe.cache_clear()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    srv = FLServer(cfg, fl, NOMAConfig(), TaskConfig(), policy="age_noma",
+                   eval_every=1, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    round_s = []
+    run_round = srv.run_round
+
+    def timed_round():
+        t = time.perf_counter()
+        sched = run_round()
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t)
+        return sched
+
+    srv.run_round = timed_round
+    hist = srv.run(FL_ROUNDS)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+
+    n_params = sum(p.numel() for p in srv.model.parameters())
+    if n_params != SMOLLM_PARAMS:
+        raise AssertionError(f"model has {n_params} parameters")
+    if hist.n_selected != [10] * FL_ROUNDS:
+        raise AssertionError(f"selected per round {hist.n_selected}")
+    if not all(math.isfinite(x) for x in hist.loss + hist.round_time):
+        raise AssertionError(f"non-finite loss/round time {hist.loss}")
+    if not all(torch.isfinite(p).all() for p in srv.model.parameters()):
+        raise AssertionError("non-finite parameters after training")
+    if counts["pairscore"] < FL_ROUNDS or counts["fedagg"] != FL_ROUNDS \
+            or counts["probe_kernel"] < 1:
+        raise AssertionError(f"kernel launches on the main path: {counts}")
+    RESULT["fl"] = dict(
+        model=cfg.name, n_params=n_params, dtype=cfg.dtype,
+        rounds=FL_ROUNDS, n_selected=hist.n_selected, loss=hist.loss,
+        accuracy=hist.accuracy, round_time_sim_s=hist.round_time,
+        setup_s=setup_s, wall_s_per_round=list(round_s),
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        launches=counts)
+    log(f"FL main path (smollm-135M bf16, 50 clients, 10 slots): "
+        f"{RESULT['fl']}")
+    return srv, counts
+
+
+def phase_profile(torch, srv):
+    """Optional (``--profile``), after the main path: one more round with
+    synchronised host timers around its stages, then one under
+    ``torch.profiler`` for the kernels' device time and the device's busy
+    share of the round."""
+    import repro_torch.fl.server as server_mod
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    spans: dict = {}
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return wrapped
+
+    stages = ((srv, "select", "schedule"),
+              (srv.trainer, "local_update", "local_sgd"),
+              (server_mod, "aggregate_deltas", "fedagg"),
+              (server_mod, "apply_aggregate", "apply"))
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
+    for obj, attr, name in stages:
+        setattr(obj, attr, timed(name, getattr(obj, attr)))
+    t0 = time.perf_counter()
+    srv.run_round()
+    spans["round"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv.evaluate()
+    spans["evaluate"] = time.perf_counter() - t0
+    for obj, attr, fn in saved:
+        setattr(obj, attr, fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv.run_round()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
+    RESULT["profile"] = dict(
+        spans_s=spans, profiled_round_wall_ms=wall_ms,
+        device_kernel_ms=dev_ms,
+        device_busy_share=dev_ms / wall_ms if wall_ms else None,
+        kernel_launches=sum(e.count for e in kern),
+        top_kernels=[dict(name=e.key[:90], count=e.count,
+                          device_ms=e.self_device_time_total / 1e3)
+                     for e in top])
+    log(f"profile: {RESULT['profile']}")
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); nothing was run", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: the port (src/repro_torch) is not beside "
+              f"{Path(__file__).name}; run it from the repository root",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    smi = nvidia_smi()
+    log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    build.load()
+    RESULT["build_s"] = time.perf_counter() - t0
+    log(f"kernels built in {RESULT['build_s']:.2f} s -> "
+        f"{build.BuildInfo.path.name}")
+    for line in build.BuildInfo.log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"ptxas: {line.strip()}")
+
+    kinfo: dict = {}
+    phase_probe(torch, dev, kinfo)
+    phase_pairscore(torch, dev, kinfo)
+    phase_fedagg(torch, dev, kinfo)
+    torch.cuda.empty_cache()
+    phase_engine(torch, dev)
+    phase_small_fl(torch, dev)
+    srv, counts = phase_main_path(torch, dev)
+    if "--profile" in sys.argv[1:]:
+        phase_profile(torch, srv)
+    del srv
+
+    sources = {"probe_kernel": ("src/repro_torch/csrc/probe.cu",
+                                "src/repro/kernels/backend.py:59"),
+               "pairscore": ("src/repro_torch/csrc/pairscore.cu",
+                             "src/repro/kernels/pairscore.py:75"),
+               "fedagg": ("src/repro_torch/csrc/fedagg.cu",
+                          "src/repro/kernels/fedagg.py:24")}
+    line = {"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": counts[name], **kinfo[name]}
+        for name, (src, rep) in sources.items()]}
+    RESULT.update(card=smi, kernels=line["kernels"])
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke.json").write_text(
+        json.dumps(RESULT, indent=1, allow_nan=False))
+    print(json.dumps(line, allow_nan=False), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}, allow_nan=False), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,231 @@
+"""FL server: round orchestration joining the scheduler (core/) to the
+training substrate (models/, optim/, data/), on one device.
+
+Counterpart of ``FLServer`` and ``History`` in ``src/repro/fl/server.py``
+for one cell, no update predictor, and every policy but
+``age_noma_budget``. Per round:
+
+  1. step the wireless scenario -> gains/n_samples/cpu; build RoundEnv
+     (incl. the current AoU ages);
+  2. run the selection policy through the engine (core/engine.py) ->
+     Schedule (mask, pairs, powers, rates, T_round);
+  3. run local SGD for each selected client, writing its delta into one
+     row of a (C, P) fp32 buffer;
+  4. FedAvg-aggregate the rows (one fedagg launch) and apply;
+  5. advance the ages and the simulated wall clock by T_round.
+
+``self.rng`` is consumed in exactly the reference's order (scenario init;
+then per round the scenario step and each selected client's batches in
+ascending client order), so a seed gives the same selections in both
+packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import FLConfig, ModelConfig, NOMAConfig
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import aoi, plan
+from repro_torch.core.engine import WirelessEngine, round_robin_priority
+from repro_torch.core.plan import RoundEnv, Schedule
+from repro_torch.data import (TaskConfig, balanced_eval_set, client_batches,
+                              partition_clients)
+from repro_torch.fl.aggregate import aggregate_deltas, apply_aggregate
+from repro_torch.fl.client import LocalTrainer
+from repro_torch.models import zoo
+from repro_torch.sim.scenario import Scenario, get_scenario_config
+
+
+@dataclasses.dataclass
+class History:
+    rounds: list = dataclasses.field(default_factory=list)
+    sim_time: list = dataclasses.field(default_factory=list)
+    round_time: list = dataclasses.field(default_factory=list)
+    accuracy: list = dataclasses.field(default_factory=list)
+    loss: list = dataclasses.field(default_factory=list)
+    max_age: list = dataclasses.field(default_factory=list)
+    mean_age: list = dataclasses.field(default_factory=list)
+    n_selected: list = dataclasses.field(default_factory=list)
+    # update-predictor telemetry (the predictor is not ported: zeros/nan)
+    n_predicted: list = dataclasses.field(default_factory=list)
+    pred_loss: list = dataclasses.field(default_factory=list)
+    pred_error: list = dataclasses.field(default_factory=list)
+    # round-time decomposition + planner diagnostics (DESIGN.md section 11)
+    t_comp_bottleneck: list = dataclasses.field(default_factory=list)
+    t_up_bottleneck: list = dataclasses.field(default_factory=list)
+    n_evicted: list = dataclasses.field(default_factory=list)
+    joint_swaps: list = dataclasses.field(default_factory=list)
+    aou_hist: list = dataclasses.field(default_factory=list)
+    # per-cell selection + handover counts (empty: one cell)
+    sel_per_cell: list = dataclasses.field(default_factory=list)
+    handovers: list = dataclasses.field(default_factory=list)
+    participation: Optional[np.ndarray] = None
+
+
+class FLServer:
+    """FL over NOMA on ``device`` (default ``"cuda"``).
+
+    ``kernel_backend`` (default ``FLConfig.kernel_backend``) is checked
+    against the device (kernels/backend.py); on a CUDA device the engine
+    and the aggregation launch the CUDA kernels.
+    ``params`` optionally supplies the initial weights as the reference's
+    numpy parameter tree (convert.py); else ``zoo.init_model`` draws them.
+    """
+
+    def __init__(self, model_cfg: ModelConfig, fl: FLConfig,
+                 nomacfg: NOMAConfig, task: TaskConfig, *,
+                 policy: str = "age_noma", eval_every: int = 5,
+                 seed: Optional[int] = None, device="cuda",
+                 kernel_backend: Optional[str] = None,
+                 params: Optional[dict] = None,
+                 pairing: Optional[str] = None,
+                 selection: Optional[str] = None):
+        if pairing is not None:
+            fl = dataclasses.replace(fl, pairing=pairing)
+        if selection is not None:
+            fl = dataclasses.replace(fl, selection=selection)
+        if policy == "age_noma_budget":
+            raise NotImplementedError(
+                "policy 'age_noma_budget' is ROADMAP queue 3 (budget "
+                "eviction loop)")
+        if fl.predictor != "none":
+            raise NotImplementedError(
+                f"predictor {fl.predictor!r} is ROADMAP queue 5")
+        self.cfg = model_cfg
+        self.fl = fl
+        self.noma = nomacfg
+        self.task = task
+        self.policy = policy
+        self.eval_every = eval_every
+        self.engine = WirelessEngine(nomacfg, fl, device=device,
+                                     kernel_backend=kernel_backend)
+        self.device = self.engine.device
+        seed = fl.seed if seed is None else seed
+        self.rng = np.random.default_rng(seed + 10_000)
+
+        # clients + wireless environment (static_iid: distances, cpu)
+        self.clients = partition_clients(fl, task)
+        self.n_samples = np.array([c.n_samples for c in self.clients],
+                                  dtype=np.float64)
+        self.scenario = Scenario(get_scenario_config(fl.scenario), nomacfg,
+                                 fl)
+        self.distances, self.cpu_freq = self.scenario.init(
+            self.rng, fl.n_clients, n_samples=self.n_samples)
+
+        # model, trainer and the (slots, P) fp32 delta buffer
+        if params is None:
+            self.model = zoo.init_model(model_cfg, seed=seed,
+                                        device=self.device)
+        else:
+            self.model = zoo.DecoderLM(model_cfg, self.device)
+            self.model.load_state_dict(
+                params_from_numpy(params, model_cfg, self.device))
+        self.trainer = LocalTrainer(model_cfg, fl.lr, fl.momentum,
+                                    device=self.device)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        self.model_bits = fl.model_bits or float(n_params) * 32.0
+        slots = min(nomacfg.n_subchannels * nomacfg.users_per_subchannel,
+                    fl.n_clients)
+        self.deltas = torch.empty((slots, n_params), dtype=torch.float32,
+                                  device=self.device)
+
+        self.ages = aoi.init_ages(fl.n_clients)
+        self.t_sim = 0.0
+        self.round_idx = 0
+        self.eval_tokens = torch.as_tensor(balanced_eval_set(task),
+                                           device=self.device).long()
+
+    # -- evaluation --------------------------------------------------------
+    @torch.no_grad()
+    def evaluate(self):
+        tokens = self.eval_tokens
+        labels = tokens[:, 1:]
+        logits, _ = zoo.forward(self.cfg, self.model, tokens[:, :-1])
+        acc = (logits.argmax(dim=-1) == labels).float().mean()
+        loss = zoo.token_loss(self.cfg, logits, labels)
+        return float(acc), float(loss)
+
+    # -- scheduling --------------------------------------------------------
+    def select(self, env: RoundEnv) -> Schedule:
+        """Every policy resolves to the engine's age priority or an
+        explicit priority vector (no budget)."""
+        p = self.policy
+        if p in ("age_noma", "oma_age"):
+            return self.engine.schedule(env, oma=p == "oma_age", policy=p)
+        n = self.fl.n_clients
+        slots = min(self.noma.n_subchannels
+                    * self.noma.users_per_subchannel, n)
+        if p == "random":
+            prio = self.rng.uniform(size=n)
+        elif p == "channel":
+            prio = env.gains
+        elif p == "round_robin":
+            prio = round_robin_priority(self.round_idx, n, slots,
+                                        self.device)
+        else:
+            raise ValueError(f"unknown policy {p!r}")
+        return self.engine.schedule(env, t_budget=0.0, policy=p,
+                                    priority=prio)
+
+    def run_round(self) -> Schedule:
+        gains, env_n_samples, env_cpu = self.scenario.step(self.rng)
+        env = RoundEnv(gains=gains, n_samples=env_n_samples,
+                       cpu_freq=env_cpu, ages=self.ages,
+                       model_bits=self.model_bits)
+        sched = self.select(env)
+
+        sel = np.flatnonzero(sched.selected)
+        for row, ci in enumerate(sel):
+            batches = client_batches(self.rng, self.clients[ci],
+                                     self.fl.local_batch,
+                                     self.fl.local_epochs)
+            self.trainer.local_update(self.model, batches, self.deltas[row])
+        if len(sel):
+            agg = aggregate_deltas(self.deltas[:len(sel)],
+                                   self.n_samples[sel])
+            apply_aggregate(self.model, agg)
+
+        self.ages = aoi.update_ages(self.ages, sched.selected)
+        self.t_sim += sched.t_round
+        self.round_idx += 1
+        return sched
+
+    # -- full experiment ---------------------------------------------------
+    def run(self, rounds: Optional[int] = None, *,
+            verbose: bool = False) -> History:
+        """Run ``rounds`` FL rounds -> ``History``."""
+        rounds = rounds or self.fl.rounds
+        hist = History()
+        part = np.zeros(self.fl.n_clients)
+        for r in range(rounds):
+            sched = self.run_round()
+            part += sched.selected
+            if r % self.eval_every == 0 or r == rounds - 1:
+                acc, loss = self.evaluate()
+            diag = plan.schedule_diag(sched, self.ages)
+            hist.rounds.append(r)
+            hist.sim_time.append(self.t_sim)
+            hist.round_time.append(sched.t_round)
+            hist.accuracy.append(acc)
+            hist.loss.append(loss)
+            hist.max_age.append(aoi.max_age(self.ages))
+            hist.mean_age.append(aoi.mean_age(self.ages))
+            hist.n_selected.append(int(sched.selected.sum()))
+            hist.n_predicted.append(0)
+            hist.pred_loss.append(float("nan"))
+            hist.pred_error.append(float("nan"))
+            hist.t_comp_bottleneck.append(diag["t_comp_bottleneck"])
+            hist.t_up_bottleneck.append(diag["t_up_bottleneck"])
+            hist.n_evicted.append(diag["n_evicted"])
+            hist.joint_swaps.append(diag["joint_swaps_accepted"])
+            hist.aou_hist.append(diag["aou_hist"].tolist())
+            if verbose and r % self.eval_every == 0:
+                print(f"[{self.policy}] round {r:3d} t={self.t_sim:9.1f}s "
+                      f"acc={acc:.4f} loss={loss:.4f} "
+                      f"max_age={hist.max_age[-1]}")
+        hist.participation = part
+        return hist

@@ -1,0 +1,146 @@
+"""Core transformer layers of the dense family: RMSNorm, RoPE, GQA
+attention, gated MLP.
+
+Counterpart of ``src/repro/models/layers.py`` (``rms_norm``,
+``rope_angles``/``apply_rope``, ``qkv_proj``/``out_proj``,
+``_direct_attention``, the GLU MLP). Weights keep the reference's
+``(in, out)`` layout and are applied as ``x @ W``, so converting the
+reference's parameters is a plain copy (convert.py).
+
+Attention is the reference's direct path (``_direct_attention``): q scaled
+in fp32, fp32 scores and softmax, output cast back to q's dtype. The
+reference takes that path whenever ``sq * skv <= 65536`` (the FL task's
+31-token sequences) and a chunked online softmax above; the port uses the
+direct path at every length, the same function summed in another order.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+
+def rms_norm(x, weight, eps: float = 1e-5):
+    """RMSNorm computed in fp32 and cast back to x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(dt)
+
+
+def rope_angles(positions, rot_dim: int, theta: float):
+    """positions (...,) int -> cos, sin (..., rot_dim // 2) fp32."""
+    inv_freq = 1.0 / (theta ** (torch.arange(
+        0, rot_dim, 2, dtype=torch.float32, device=positions.device)
+        / rot_dim))
+    ang = positions.to(torch.float32)[..., None] * inv_freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin, rope_frac: float):
+    """x (..., S, H, hd); cos/sin (..., S, rot//2). Rotates the first
+    ``rope_frac * hd`` dims, half-split convention; cos and sin are cast
+    to x's dtype before the multiply, as in the reference."""
+    if rope_frac <= 0.0:
+        return x
+    hd = x.shape[-1]
+    rot = int(hd * rope_frac)
+    rot -= rot % 2
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = x_rot.chunk(2, dim=-1)
+    c = cos[..., None, :].to(x.dtype)     # add head axis
+    s = sin[..., None, :].to(x.dtype)
+    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return torch.cat([out, x_pass], dim=-1)
+
+
+def direct_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
+                     window: int = 0):
+    """q (B,Sq,H,hd), k/v (B,Skv,KH,hd) -> (B,Sq,H,hd) in q's dtype."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    kh = cfg.n_kv_heads
+    g = h // kh
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.reshape(b, sq, kh, g, hd).float() * scale
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float())
+    if cfg.logit_softcap > 0.0:
+        s = cfg.logit_softcap * torch.tanh(s / cfg.logit_softcap)
+    qp = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kp = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window > 0:
+        mask = mask & (kp > qp - window)
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _weight(*shape, dtype, device):
+    return nn.Parameter(torch.empty(*shape, dtype=dtype, device=device))
+
+
+class Attention(nn.Module):
+    """GQA attention block: wq (d, H*hd), wk/wv (d, KH*hd), wo (H*hd, d)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        d, hd = cfg.d_model, cfg.head_dim
+        qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        self.wq = _weight(d, qd, dtype=dtype, device=device)
+        self.wk = _weight(d, kvd, dtype=dtype, device=device)
+        self.wv = _weight(d, kvd, dtype=dtype, device=device)
+        self.wo = _weight(qd, d, dtype=dtype, device=device)
+        if cfg.qkv_bias:
+            self.bq = nn.Parameter(torch.zeros(qd, dtype=dtype, device=device))
+            self.bk = nn.Parameter(torch.zeros(kvd, dtype=dtype, device=device))
+            self.bv = nn.Parameter(torch.zeros(kvd, dtype=dtype, device=device))
+
+    def qkv_proj(self, x):
+        """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,KH,hd)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        if cfg.qkv_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        return (q.reshape(b, s, cfg.n_heads, cfg.head_dim),
+                k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
+                v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim))
+
+    def forward(self, x, cos, sin):
+        cfg = self.cfg
+        q, k, v = self.qkv_proj(x)
+        q = apply_rope(q, cos, sin, cfg.rope_frac)
+        k = apply_rope(k, cos, sin, cfg.rope_frac)
+        out = direct_attention(q, k, v, cfg, causal=True)
+        b, s = out.shape[:2]
+        return out.reshape(b, s, -1) @ self.wo
+
+
+class MLP(nn.Module):
+    """Gated (SwiGLU) MLP, or a plain tanh-GELU MLP when ``glu`` is off."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.glu = cfg.glu
+        d, f = cfg.d_model, cfg.d_ff
+        self.wi = _weight(d, f, dtype=dtype, device=device)
+        if cfg.glu:
+            self.wg = _weight(d, f, dtype=dtype, device=device)
+        self.wo = _weight(f, d, dtype=dtype, device=device)
+
+    def forward(self, x):
+        if self.glu:
+            h = F.silu(x @ self.wg) * (x @ self.wi)
+        else:
+            h = F.gelu(x @ self.wi, approximate="tanh")
+        return h @ self.wo

@@ -1,0 +1,76 @@
+"""Wireless environment of the FL server (numpy, host side).
+
+Counterpart of the ``static_iid`` branch of ``NumpyScenario``
+(``src/repro/sim/numpy_ref.py``) with the ``ScenarioConfig`` registry of
+``src/repro/sim/scenario.py``. It consumes the server's
+``np.random.Generator`` exactly as the reference does — at ``init`` the
+distances, then the CPU base frequencies; at each ``step`` one Exp(1)
+fading vector — so the same seed gives the same gains, and hence the same
+selections, in both packages.
+
+The dynamic scenarios of the reference (mobility, correlated fading,
+shadowing, bursty compute, data arrival) are ROADMAP queue 4 and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+
+from repro_torch.configs.base import FLConfig, NOMAConfig
+from repro_torch.core import noma
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioConfig:
+    """Scenario description; the port runs ``static_iid`` only: fixed
+    placement, i.i.d. block fading, static compute and data."""
+    name: str = "static_iid"
+
+
+SCENARIOS = {"static_iid": ScenarioConfig(name="static_iid")}
+
+# the reference's other registered scenarios (src/repro/sim/scenario.py)
+LATER_SCENARIOS = ("pedestrian", "vehicular", "iot_bursty",
+                   "hotspot_shadowed")
+
+
+def get_scenario_config(name: str) -> ScenarioConfig:
+    if name in SCENARIOS:
+        return SCENARIOS[name]
+    if name in LATER_SCENARIOS:
+        raise NotImplementedError(
+            f"scenario {name!r} is ROADMAP queue 4 (scenario sampler); "
+            f"the port runs {sorted(SCENARIOS)}")
+    raise ValueError(f"unknown scenario {name!r} "
+                     f"(registered: {sorted(SCENARIOS) + list(LATER_SCENARIOS)})")
+
+
+class Scenario:
+    """Single-env ``static_iid`` environment: (N,)-shaped fp64 state."""
+
+    def __init__(self, scfg: ScenarioConfig, ncfg: NOMAConfig,
+                 flcfg: FLConfig):
+        if flcfg.n_cells > 1:
+            raise NotImplementedError("n_cells > 1 is ROADMAP queue 3")
+        self.cfg = scfg
+        self.ncfg = ncfg
+        self.cpu_lo = flcfg.cpu_freq_range_ghz[0] * 1e9
+        self.cpu_hi = flcfg.cpu_freq_range_ghz[1] * 1e9
+        self.distances: Optional[np.ndarray] = None
+
+    def init(self, rng: np.random.Generator, n: int,
+             n_samples: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Draw the initial environment; returns (distances, cpu_freq)."""
+        self.distances = noma.sample_distances(rng, n, self.ncfg)
+        self.cpu_base = rng.uniform(self.cpu_lo, self.cpu_hi, n)
+        self.n_cur = np.asarray(n_samples, np.float64).copy()
+        return self.distances, self.cpu_base.copy()
+
+    def step(self, rng: np.random.Generator
+             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Advance one round; returns (gains, n_samples, cpu_freq) fp64."""
+        gains = noma.sample_gains(rng, self.distances, self.ncfg)
+        return gains, self.n_cur.copy(), self.cpu_base.copy()

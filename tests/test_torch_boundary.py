@@ -1,0 +1,78 @@
+"""Boundaries of the port: it imports neither jax nor the reference
+package, and its entry points run on the card unless told otherwise."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import FLConfig, NOMAConfig, get_config
+from repro_torch.core.engine import WirelessEngine
+from repro_torch.data import TaskConfig
+from repro_torch.fl import FLServer
+from repro_torch.kernels.backend import resolve_backend, resolve_device
+from repro_torch.models import zoo
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_and_no_reference_imports(path):
+    for mod in imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_scan_sees_the_whole_port():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    assert {"chip_smoke.py", "src/repro_torch/core/engine.py",
+            "src/repro_torch/fl/server.py",
+            "src/repro_torch/kernels/fedagg.py"} <= names
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without a CUDA card")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
+    cfg = get_config("smollm_135m").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_backend()
+    with pytest.raises(RuntimeError, match="cuda"):
+        WirelessEngine(NOMAConfig(), FLConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        zoo.init_model(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FLServer(cfg, FLConfig(n_clients=4, samples_per_client=(8, 8)),
+                 NOMAConfig(), TaskConfig())
+
+
+def test_explicit_cpu_runs_the_plain_versions():
+    eng = WirelessEngine(NOMAConfig(), FLConfig(), device="cpu")
+    assert eng.device.type == "cpu"
+    with pytest.raises(RuntimeError):
+        WirelessEngine(NOMAConfig(), FLConfig(), device="cpu",
+                       kernel_backend="cuda")
+
+
+@pytest.mark.parametrize("bad", [dict(engine="jax"),
+                                 dict(kernel_backend="xla"),
+                                 dict(policy="nope"), dict(n_cells=0)])
+def test_config_validates_eagerly(bad):
+    with pytest.raises(ValueError):
+        FLConfig(**bad)
