@@ -7,20 +7,28 @@
 Phases, each fatal on failure:
   1. the card's name and power limit; build the CUDA kernels from
      src/repro_torch/csrc (timed as set-up); launch the probe kernel;
-  2. every kernel against its plain PyTorch version on the card, with its
-     time (CUDA events, median), its plain version's time, a library
-     yardstick where one PyTorch call computes the same function, and its
-     bound on the H100;
+  2. every kernel (probe, pairscore, fedagg, planner) against its plain
+     PyTorch version on the card, with its time (CUDA events, median), its
+     plain version's time, a library yardstick where one PyTorch call
+     computes the same function, and its bound on the H100;
   3. the wireless engine at Monte-Carlo scale (B=64, N=10,000, K=128),
      checked for its invariants and against the same engine on the CPU;
-  4. the FL round on a small model, card against CPU (the reference);
-  5. the main path: ``FLServer`` at the full width of smollm-135M in bf16,
-     50 clients, 10 slots, 3 rounds each evaluated, with every kernel's
-     launch count set to 0 just before and read just after.
+  4. the pairing policies and joint selection (B=64, N=10,000, K=16):
+     adjacent, hungarian, greedy_matching and hungarian+joint, checked for
+     their invariants and against the CPU;
+  5. the Monte-Carlo rollout (``montecarlo_rounds``, R=20, S=32, N=64) for
+     five policies under strong_weak and hungarian, card against CPU;
+  6. the FL round on a small model, card against CPU (the reference);
+  7. the slice-1 main path: ``FLServer`` at the full width of smollm-135M
+     in bf16, 50 clients, 10 slots, 3 rounds each evaluated;
+  8. the same FL round under ``pairing="hungarian", selection="joint"``,
+     3 rounds. Phases 7 and 8 each set every kernel's launch count to 0
+     just before and read it just after.
 
 With ``--profile`` it then times the stages of one more FL round and
 traces another with ``torch.profiler``. It prints a ``{"kernels": [...]}``
-line, the ``nvidia-smi`` name and power limit, and last
+line (launches from phase 8, which runs all four kernels), the
+``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Without a CUDA card, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -28,6 +36,7 @@ repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -48,6 +57,8 @@ PAIR_TOL = dict(rtol=1e-6, atol=1e-9)
 # tolerance that a kernel accumulating in bf16 would miss
 FEDAGG_TOL = {"float32": 1e-6, "bfloat16": 1e-5}
 PAIR_OPS = 23            # fp32 operations per element (csrc/pairscore.cu)
+PLANNER_OPS = 30         # fp32 operations per pair (csrc/planner.cu)
+BF16_ULP = 2.0 ** -7     # one bf16 ulp, relative, at worst
 FL_ROUNDS = 3
 SMOLLM_PARAMS = 134_515_008
 
@@ -206,6 +217,60 @@ def phase_fedagg(torch, dev, kinfo):
     log(f"fedagg ({c}, {n}) fp32: {kinfo['fedagg']}")
 
 
+def phase_planner(torch, dev, kinfo):
+    """The planner kernel against its plain version: the bf16 table within
+    one bf16 ulp elementwise, row_min and t_sw to rtol 1e-6."""
+    from repro_torch.kernels import planner as PL
+    kw = dict(n0b=1e-14, pmax=0.2, bw=1e6)
+
+    def inputs(b, c, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        g = torch.sort(torch.rand((b, c), generator=gen, device=dev) * 1e-9
+                       + 1e-14, dim=1, descending=True).values
+        t = torch.rand((b, c), generator=gen, device=dev) * 0.45 + 0.05
+        return g, t, torch.full((b,), 4e6, device=dev)
+
+    errs = {}
+    shapes = [(1, 10), (32, 10), (64, 256)] + [(3, c) for c in
+                                               (1, 2, 3, 7, 129)]
+    for b, c in shapes:
+        for oma in (False, True):
+            g, t, mb = inputs(b, c, b * 1000 + c)
+            out = PL.planner_tables(g, t, mb, oma=oma, **kw)
+            ref = PL.planner_tables_plain(g, t, mb, oma=oma, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out[0].float(), ref[0].float(),
+                                       rtol=BF16_ULP, atol=0.0)
+            torch.testing.assert_close(out[1], ref[1], rtol=1e-6, atol=0.0)
+            torch.testing.assert_close(out[2], ref[2], rtol=1e-6, atol=0.0)
+            errs[f"({b}, {c}){'/oma' if oma else ''}"] = max_err(
+                torch, [out[0], out[1][torch.isfinite(out[1])], out[2]],
+                [ref[0], ref[1][torch.isfinite(ref[1])], ref[2]])
+    log(f"planner agrees with its plain version (table 1 bf16 ulp, "
+        f"row_min/t_sw rtol 1e-6): {errs}")
+    timings = {}
+    for name, (b, c) in (("fl", (1, 10)), ("montecarlo", (32, 10)),
+                         ("k128", (64, 256))):
+        g, t, mb = inputs(b, c, 7)
+        b_ms, b_by = bound(b * (8 * c + 4) + 2 * b * c * c + 4 * b * c
+                           + 4 * b, PLANNER_OPS * b * c * c)
+        timings[name] = dict(
+            shape=[b, c],
+            ms=time_ms(torch, lambda: PL.planner_tables(g, t, mb, **kw)),
+            plain_ms=time_ms(torch, lambda: PL.planner_tables_plain(
+                g, t, mb, **kw)),
+            bound_ms=b_ms, bound_by=b_by)
+        log(f"planner ({b}, {c}): {timings[name]}")
+    fl = timings["fl"]
+    kinfo["planner"] = dict(
+        max_abs_err=max(errs[k] for k in ("(1, 10)", "(1, 10)/oma")),
+        ms=fl["ms"], plain_ms=fl["plain_ms"], library_ms=None,
+        bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
+        tolerance="table 1 bf16 ulp (rtol 2^-7); row_min, t_sw rtol 1e-6",
+        shape=fl["shape"], at_montecarlo_shape=timings["montecarlo"],
+        at_k128_shape=timings["k128"], errors=errs)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: engine at Monte-Carlo scale
 # ---------------------------------------------------------------------------
@@ -265,6 +330,178 @@ def phase_engine(torch, dev):
         f"CPU hold; {RESULT['engine']}")
 
 
+def phase_policies(torch, dev):
+    """The pairing policies and joint selection at B=64, N=10,000, K=16
+    (c=32, m=16): invariants on the card, and the CPU plain path on the
+    same batch."""
+    import numpy as np
+    from repro_torch.configs import FLConfig, NOMAConfig
+    from repro_torch.core.engine import WirelessEngine
+    b, n, k = 64, 10_000, 16
+    c = 2 * k
+    ncfg = NOMAConfig(n_subchannels=k)
+    batch = make_batch(np.random.default_rng(1), b, n, ncfg)
+    sw = WirelessEngine(ncfg, FLConfig(), device=dev).schedule_batch(
+        *batch, 1e6)
+    res = {}
+    for pairing, selection in (("adjacent", "greedy_set"),
+                               ("hungarian", "greedy_set"),
+                               ("greedy_matching", "greedy_set"),
+                               ("hungarian", "joint")):
+        name = pairing if selection == "greedy_set" else f"{pairing}+joint"
+        eng = WirelessEngine(ncfg, FLConfig(), device=dev, pairing=pairing,
+                             selection=selection)
+        out = eng.schedule_batch(*batch, 1e6)
+        torch.cuda.synchronize()
+        sel = out.selected
+        if not bool((sel.sum(1) == c).all()):
+            raise AssertionError(f"{name}: not exactly c selected per row")
+        ids = torch.cat([out.pair_strong, out.pair_weak], 1)
+        ids = torch.where(ids >= 0, ids, n)
+        hits = torch.zeros((b, n + 1), dtype=torch.int64, device=dev)
+        hits.scatter_add_(1, ids, torch.ones_like(ids))
+        if not bool((hits[:, :n] == sel.long()).all()):
+            raise AssertionError(f"{name}: a selected client is not in "
+                                 f"exactly one pair row")
+        tot = torch.where(sel, out.t_cmp + out.t_com, 0.0)
+        torch.testing.assert_close(out.t_round, tot.max(1).values,
+                                   rtol=1e-6, atol=0.0)
+        if not bool((out.powers <= ncfg.max_power_w).all()):
+            raise AssertionError(f"{name}: a power exceeds P_max")
+        if pairing == "hungarian" and not bool(
+                (out.t_round <= sw.t_round * (1 + 1e-2)).all()):
+            raise AssertionError(f"{name}: slower than strong_weak beyond "
+                                 f"the bf16 tier")
+        cpu = WirelessEngine(ncfg, FLConfig(), device="cpu",
+                             pairing=pairing,
+                             selection=selection).schedule_batch(*batch, 1e6)
+        if not torch.equal(sel.cpu(), cpu.selected):
+            raise AssertionError(f"{name}: selected sets differ card vs CPU")
+        same = ((out.pair_strong.cpu() == cpu.pair_strong)
+                & (out.pair_weak.cpu() == cpu.pair_weak)).all(1)
+        if pairing != "hungarian" and not bool(same.all()):
+            raise AssertionError(f"{name}: pair tables differ card vs CPU")
+        torch.testing.assert_close(
+            out.t_round.cpu(), cpu.t_round, atol=0.0,
+            rtol=1e-2 if pairing == "hungarian" else 1e-5)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            eng.schedule_batch(*batch, 1e6)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res[name] = dict(batch_ms=statistics.median(times) * 1e3,
+                         rows_pairing_differently_vs_cpu=int((~same).sum()),
+                         mean_t_round_s=float(out.t_round.mean()))
+        log(f"policy {name} B={b} N={n} K={k}: invariants and card == CPU "
+            f"hold; {res[name]}")
+    # where hungarian's time goes: the matching solvers alone on a
+    # (B, c, c) table, host-timed to a synchronise
+    from repro_torch.core import matching
+    gen = torch.Generator(device=dev).manual_seed(4)
+    table = torch.rand((b, c, c), generator=gen, device=dev) + 1.0
+    m = c // 2
+    ar = torch.arange(m, device=dev).expand(b, m)
+    rev = torch.arange(c - 1, m - 1, -1, device=dev).expand(b, m)
+    adj = (2 * torch.arange(m, device=dev)).expand(b, m)
+    solvers = {
+        "hungarian_assignment": lambda: matching.hungarian_assignment(
+            table[:, :m, m:]),
+        "best_bottleneck_matching (3 inits)":
+            lambda: matching.best_bottleneck_matching(
+                table, ((ar, rev), (ar, rev), (adj, adj + 1))),
+        "greedy_assignment": lambda: matching.greedy_assignment(
+            table[:, :m, m:]),
+    }
+    split = {}
+    for name, fn in solvers.items():
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        split[name] = statistics.median(times) * 1e3
+    log(f"matching solvers at B={b}, m={m} (ms): {split}")
+    RESULT["policies"] = dict(B=b, N=n, K=k, c=c, solver_ms=split, **res)
+
+
+def mc_gains(rng, r, s, n, ncfg):
+    from repro_torch.core import noma
+    import numpy as np
+    dist = np.stack([noma.sample_distances(rng, n, ncfg) for _ in range(s)])
+    gains = np.stack([np.stack([noma.sample_gains(rng, dist[j], ncfg)
+                                for j in range(s)]) for _ in range(r)])
+    return (gains, rng.uniform(100, 1000, (s, n)),
+            rng.uniform(0.5e9, 2e9, (s, n)))
+
+
+def phase_montecarlo(torch, dev):
+    """``montecarlo_rounds`` at run_montecarlo's defaults (R=20, S=32,
+    N=64, default NOMAConfig) for five policies under strong_weak and
+    hungarian, card against CPU; then strong_weak at R=5, S=64,
+    N=10,000, K=128."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import FLConfig, NOMAConfig
+    from repro_torch.core.engine import MC_POLICIES, WirelessEngine
+    r, s, n = 20, 32, 64
+    ncfg = NOMAConfig()
+    c = min(ncfg.n_subchannels * ncfg.users_per_subchannel, n)
+    inputs = mc_gains(np.random.default_rng(2), r, s, n, ncfg)
+    res = {}
+    for pairing in ("strong_weak", "hungarian"):
+        card = WirelessEngine(ncfg, FLConfig(), device=dev, pairing=pairing)
+        cpu = WirelessEngine(ncfg, FLConfig(), device="cpu",
+                             pairing=pairing)
+        for policy in MC_POLICIES:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = card.montecarlo_rounds(*inputs, 1e6, policy=policy)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            want = r if pairing == "hungarian" else 0
+            if counts["planner"] != want:
+                raise AssertionError(f"{pairing}/{policy}: planner launched "
+                                     f"{counts['planner']} times, not {want}")
+            if not bool((out["n_selected"] == c).all()):
+                raise AssertionError(f"{pairing}/{policy}: not c per round")
+            if policy != "random":
+                ref = cpu.montecarlo_rounds(*inputs, 1e6, policy=policy)
+                for key in ("n_selected", "participation", "final_ages"):
+                    if not torch.equal(out[key].cpu(), ref[key]):
+                        raise AssertionError(f"{pairing}/{policy}: {key} "
+                                             f"differs card vs CPU")
+                torch.testing.assert_close(
+                    out["t_round"].cpu(), ref["t_round"], atol=0.0,
+                    rtol=1e-2 if pairing == "hungarian" else 1e-5)
+            res[f"{pairing}/{policy}"] = dict(
+                s=sec, drops_per_s=r * s / sec, launches=counts)
+            log(f"montecarlo {pairing}/{policy} R={r} S={s} N={n}: "
+                f"{res[f'{pairing}/{policy}']}")
+    RESULT["montecarlo"] = dict(R=r, S=s, N=n, K=ncfg.n_subchannels)
+    rb, sb, nb, kb = 5, 64, 10_000, 128
+    ncfg = NOMAConfig(n_subchannels=kb)
+    big = mc_gains(np.random.default_rng(3), rb, sb, nb, ncfg)
+    eng = WirelessEngine(ncfg, FLConfig(), device=dev)
+    eng.montecarlo_rounds(*big, 1e6)                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.montecarlo_rounds(*big, 1e6)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    if not bool((out["n_selected"] == 2 * kb).all()):
+        raise AssertionError("montecarlo K=128: not c per round")
+    res["strong_weak/age_noma K=128"] = dict(
+        R=rb, S=sb, N=nb, K=kb, s=sec, drops_per_s=rb * sb / sec)
+    log(f"montecarlo strong_weak R={rb} S={sb} N={nb} K={kb}: "
+        f"{res['strong_weak/age_noma K=128']}")
+    RESULT["montecarlo"].update(res)
+
+
 # ---------------------------------------------------------------------------
 # phase 4-5: the FL round
 # ---------------------------------------------------------------------------
@@ -309,7 +546,10 @@ def phase_small_fl(torch, dev):
         f"loss {h_card.loss}")
 
 
-def phase_main_path(torch, dev):
+def phase_main_path(torch, dev, label="fl", **fl_kw):
+    """FLServer at the full width of smollm-135M, FL_ROUNDS rounds each
+    evaluated, with every launch count set to 0 just before and read just
+    after. ``fl_kw`` adds FLConfig fields (the pairing, the selection)."""
     from repro_torch import kernels
     from repro_torch.configs import FLConfig, NOMAConfig, get_config
     from repro_torch.data import TaskConfig
@@ -318,7 +558,7 @@ def phase_main_path(torch, dev):
 
     cfg = get_config("smollm_135m")
     fl = FLConfig(n_clients=50, samples_per_client=(64, 128),
-                  local_batch=32)
+                  local_batch=32, **fl_kw)
     # counts to 0, and the once-per-process probe forgotten, just before
     # the main path: it runs as in a fresh process
     backend.probe.cache_clear()
@@ -353,18 +593,27 @@ def phase_main_path(torch, dev):
         raise AssertionError(f"non-finite loss/round time {hist.loss}")
     if not all(torch.isfinite(p).all() for p in srv.model.parameters()):
         raise AssertionError("non-finite parameters after training")
-    if counts["pairscore"] < FL_ROUNDS or counts["fedagg"] != FL_ROUNDS \
-            or counts["probe_kernel"] < 1:
-        raise AssertionError(f"kernel launches on the main path: {counts}")
-    RESULT["fl"] = dict(
+    if fl.pairing == "hungarian" and fl.selection == "joint":
+        # per round: two finishes (the greedy set and the refined one), each
+        # one planner and one pairscore launch; the swap search scores
+        # 1 + JOINT_SWAP_ITERS sets through pairscore
+        want = dict(planner=2 * FL_ROUNDS, pairscore=7 * FL_ROUNDS)
+    else:
+        want = dict(planner=0, pairscore=FL_ROUNDS)
+    if any(counts[k] != v for k, v in want.items()) \
+            or counts["fedagg"] != FL_ROUNDS or counts["probe_kernel"] != 1:
+        raise AssertionError(f"kernel launches on the {label} path: "
+                             f"{counts}")
+    RESULT[label] = dict(
+        pairing=fl.pairing, selection=fl.selection,
         model=cfg.name, n_params=n_params, dtype=cfg.dtype,
         rounds=FL_ROUNDS, n_selected=hist.n_selected, loss=hist.loss,
         accuracy=hist.accuracy, round_time_sim_s=hist.round_time,
         setup_s=setup_s, wall_s_per_round=list(round_s),
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
         launches=counts)
-    log(f"FL main path (smollm-135M bf16, 50 clients, 10 slots): "
-        f"{RESULT['fl']}")
+    log(f"FL {label} path (smollm-135M bf16, 50 clients, 10 slots, "
+        f"{fl.pairing}/{fl.selection}): {RESULT[label]}")
     return srv, counts
 
 
@@ -460,12 +709,20 @@ def main() -> int:
     phase_probe(torch, dev, kinfo)
     phase_pairscore(torch, dev, kinfo)
     phase_fedagg(torch, dev, kinfo)
+    phase_planner(torch, dev, kinfo)
     torch.cuda.empty_cache()
     phase_engine(torch, dev)
+    phase_policies(torch, dev)
+    phase_montecarlo(torch, dev)
     phase_small_fl(torch, dev)
-    srv, counts = phase_main_path(torch, dev)
+    srv, _ = phase_main_path(torch, dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, srv)
+    del srv
+    gc.collect()            # the timed run_round closure keeps a cycle
+    torch.cuda.empty_cache()
+    srv, counts = phase_main_path(torch, dev, "fl_hungarian_joint",
+                                  pairing="hungarian", selection="joint")
     del srv
 
     sources = {"probe_kernel": ("src/repro_torch/csrc/probe.cu",
@@ -473,10 +730,15 @@ def main() -> int:
                "pairscore": ("src/repro_torch/csrc/pairscore.cu",
                              "src/repro/kernels/pairscore.py:75"),
                "fedagg": ("src/repro_torch/csrc/fedagg.cu",
-                          "src/repro/kernels/fedagg.py:24")}
+                          "src/repro/kernels/fedagg.py:24"),
+               "planner": ("src/repro_torch/csrc/planner.cu",
+                           "src/repro/kernels/planner.py:47")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], **kinfo[name]}
+         "launches": counts[name],
+         "launches_path": "FLServer smollm-135M, hungarian + joint, "
+                          f"{FL_ROUNDS} rounds",
+         **kinfo[name]}
         for name, (src, rep) in sources.items()]}
     RESULT.update(card=smi, kernels=line["kernels"])
     OUT.mkdir(exist_ok=True)

@@ -329,5 +329,5 @@ def get_config(arch: str) -> ModelConfig:
     name = canon(arch)
     if name not in ARCH_IDS:
         raise ValueError(f"architecture {arch!r} is not ported "
-                         f"(ported: {ARCH_IDS}; ROADMAP queue 6)")
+                         f"(ported: {ARCH_IDS}; ROADMAP queue 4)")
     return importlib.import_module(f"repro_torch.configs.{name}").CONFIG

@@ -1,7 +1,7 @@
 """Age-of-Update (AoU) state machine — the paper's selection signal.
 
 Copy of the state machine in ``src/repro/core/aoi.py`` (numpy, no
-framework); the predictor's staleness helpers are ROADMAP queue 5.
+framework); the predictor's staleness helpers are ROADMAP queue 3.
 
 A_n(t) counts rounds since client n's update was last aggregated:
 reset to 1 on selection, +1 otherwise. Ages start at 1 so every client has

@@ -1,14 +1,18 @@
 """Batched PyTorch wireless engine: the paper's joint round (AoU selection,
-strong/weak SIC pairing, closed-form power allocation, round time) over a
-batch of environments, on one device.
+SIC pairing under a policy, closed-form power allocation, round time) over
+a batch of environments, on one device, and the pre-sampled Monte-Carlo
+rollout built on it.
 
 Counterpart of the no-budget, single-cell fast path of
 ``src/repro/core/engine.py``: ``EngineParams``/``EngineSchedule``,
 ``schedule_diag``, ``_age_priority``, ``round_robin_priority``,
 ``_compute_times``, the admission contract of ``_admit_fast`` /
-``_admit_fast_seg``, ``_fast_finish`` with the strong_weak branch and the
-odd-candidate solo row, ``WirelessEngine`` and
-``engine_schedule_to_numpy``.
+``_admit_fast_seg``, ``_fast_finish`` under every pairing policy
+(strong_weak, adjacent, hungarian, greedy_matching) with the odd-candidate
+solo row, ``_completion_table``, ``_sw_completion``, the joint selection
+stage (``_joint_enum_mask``, ``_joint_swap_mask``, ``_joint_refine_mask``,
+``_pick_faster``), ``WirelessEngine`` with ``montecarlo_rounds`` /
+``_mc_loop`` / ``_montecarlo_step``, and ``engine_schedule_to_numpy``.
 
 Stages (DESIGN.md section 8), all fixed-shape tensor ops, no host sync:
 
@@ -23,14 +27,27 @@ Stages (DESIGN.md section 8), all fixed-shape tensor ops, no host sync:
               for bit;
   * rank      one stable descending sort of the admitted gains: ties go by
               client index, the plan.py contract;
-  * allocate  rank p pairs with rank c_pair-1-p; the pair power/rate math
-              runs in the pairscore kernel (kernels/pairscore.py); an odd
-              count parks the weakest candidate alone at full power;
+  * match     the pairing policy (DESIGN.md section 7): strong_weak pairs
+              rank p with rank c_pair-1-p, adjacent pairs neighbours;
+              greedy_matching runs ``matching.greedy_assignment`` on the
+              effective-power table; hungarian takes the planner kernel's
+              bf16 completion table and fp32 strong_weak bottleneck
+              (kernels/planner.py), enumerates every matching for
+              m <= ``ENUM_MAX_PAIRS``, else runs the Hungarian assignment
+              and a three-start bottleneck 2-opt (core/matching.py), and
+              keeps strong_weak unless strictly faster;
+  * allocate  the pair power/rate math runs in the pairscore kernel
+              (kernels/pairscore.py); an odd count parks the weakest
+              candidate alone at full power;
   * time      T_round = max over the admitted of T_cmp + S / R.
 
-The pairing policies other than strong_weak, ``selection="joint"``, a
-round-time budget and ``n_cells > 1`` are later slices of the port
-(ROADMAP queues 2 and 3) and raise ``NotImplementedError``.
+``selection="joint"`` refines the admitted set (exhaustive enumeration for
+N <= ``JOINT_ENUM_MAX_N``, else a swap search scored by strong_weak
+completions through the pairscore kernel) and keeps the refined schedule
+only where strictly faster.
+
+A round-time budget, ``n_cells > 1`` and ``shard=True`` are later slices
+of the port and raise ``NotImplementedError`` naming their ROADMAP queue.
 """
 from __future__ import annotations
 
@@ -42,18 +59,24 @@ import torch
 
 from repro_torch.configs.base import (ADMISSIONS, PAIRINGS, SELECTIONS,
                                       FLConfig, NOMAConfig)
-from repro_torch.core.plan import AOU_BUCKET_EDGES, RoundEnv, Schedule
-from repro_torch.kernels import pairscore
+from repro_torch.core import matching
+from repro_torch.core.pairing import ENUM_MAX_PAIRS, enumerate_matchings
+from repro_torch.core.plan import (AOU_BUCKET_EDGES, JOINT_ENUM_MAX_N,
+                                   JOINT_SWAP_ITERS, RoundEnv, Schedule,
+                                   enumerate_subsets)
+from repro_torch.kernels import pairscore, planner
 from repro_torch.kernels.backend import resolve_backend
 
 _LATER = {
-    "pairing": "the adjacent/hungarian/greedy_matching pairing policies "
-               "are ROADMAP queue 2 (planner kernel)",
-    "selection": "selection='joint' is ROADMAP queue 2",
-    "budget": "a round-time budget (t_budget > 0) is ROADMAP queue 3 "
-              "(budget eviction loop)",
-    "cells": "n_cells > 1 is ROADMAP queue 3 (multi-cell)",
+    "budget": "a round-time budget (t_budget > 0) and the age_noma_budget "
+              "policy are ROADMAP queue 1 (budget eviction loop)",
+    "cells": "n_cells > 1 and cell_seq are ROADMAP queue 1 (multi-cell)",
+    "shard": "shard=True (seeds split over devices) is ROADMAP queue 2, "
+             "with run_montecarlo",
 }
+
+# the policies montecarlo_rounds resolves to a priority vector
+MC_POLICIES = ("age_noma", "oma_age", "channel", "round_robin", "random")
 
 
 # ---------------------------------------------------------------------------
@@ -188,39 +211,109 @@ def _admit(priority, gains, c: int):
                        device=gains.device).scatter_(1, top, True)
 
 
-def _fast_finish(cand, gains, t_cmp, n_samples, model_bits,
-                 prm: EngineParams, oma: bool, c: int) -> EngineSchedule:
-    """Stages 3-5 for an admission mask with exactly ``c`` members per
-    row: rank, strong_weak pairing, power/rates (the pairscore kernel on a
-    CUDA device), round time, client-space outputs."""
-    b, n = gains.shape
-    n0b, pmax, bw = prm.noise_power_w, prm.max_power_w, prm.bandwidth_hz
-    odd = c % 2
-    c_pair = c - odd
-    m = c_pair // 2
-
-    # admitted client ids in index order (stable sort of the mask), then
-    # by rank: one stable descending sort of their gains (ties by index)
+def _sort_admitted(cand, gains, c: int):
+    """Admitted client ids in index order (stable sort of the mask), then
+    by rank: one stable descending sort of their gains (ties by index).
+    Returns (gains by rank (B, c), client id by rank (B, c))."""
     comp = torch.sort(cand.to(torch.uint8), dim=1, descending=True,
                       stable=True).indices[:, :c]
     g_c = gains.gather(1, comp)
     sg_c, sidx_c = torch.sort(g_c, dim=1, descending=True, stable=True)
-    sid_c = comp.gather(1, sidx_c)                     # client id by rank
+    return sg_c, comp.gather(1, sidx_c)
 
-    # rates/powers by rank: rank p (strong) pairs rank c_pair-1-p (weak)
+
+def _matching_positions(sg_c, sid_c, t_cmp, model_bits, prm: EngineParams,
+                        oma: bool, pairing: str, c_pair: int):
+    """Rank positions (strong (B, m), weak (B, m)) of the hungarian or
+    greedy_matching pairs over the gain-sorted half-split."""
+    b = sg_c.shape[0]
+    m = c_pair // 2
+    dev = sg_c.device
+    ar_m = torch.arange(m, device=dev).expand(b, m)
+    if pairing == "greedy_matching":
+        # effective-power surrogate: precision-exact structural ties
+        score = pairscore.effective_power_table(
+            sg_c[:, :m], sg_c[:, m:c_pair], n0b=prm.noise_power_w,
+            pmax=prm.max_power_w)
+        return ar_m, m + matching.greedy_assignment(score)
+    # hungarian: the planner kernel's bf16 completion table (upcast fp32)
+    # over the sorted ranks, and its fp32 strong_weak bottleneck t_sw
+    table_t, _, t_sw = planner.planner_tables(
+        sg_c[:, :c_pair], t_cmp.gather(1, sid_c)[:, :c_pair], model_bits,
+        n0b=prm.noise_power_w, pmax=prm.max_power_w, bw=prm.bandwidth_hz,
+        oma=oma)
+    table = table_t.float()
+    rev = torch.arange(c_pair - 1, m - 1, -1, device=dev).expand(b, m)
+    if m <= ENUM_MAX_PAIRS:
+        # exact bottleneck by enumeration (L = 1/3/15/105)
+        mt = torch.as_tensor(enumerate_matchings(m), device=dev)
+        vals = table[:, mt[:, :, 0], mt[:, :, 1]]            # (B, L, m)
+        best = vals.amax(dim=2).argmin(dim=1)
+        a_p, b_p = mt[best, :, 0], mt[best, :, 1]
+    else:
+        # min-sum assignment init + multi-start bottleneck 2-opt
+        sigma = matching.hungarian_assignment(table[:, :m, m:c_pair])
+        adj = (2 * torch.arange(m, device=dev)).expand(b, m)
+        a_p, b_p = matching.best_bottleneck_matching(
+            table, ((ar_m, m + sigma), (ar_m, rev), (adj, adj + 1)))
+    # never-slower guard against strong_weak (t_sw is the fp32 threshold)
+    use = (matching.pair_bottleneck(table, a_p, b_p) < t_sw)[:, None]
+    return torch.where(use, a_p, ar_m), torch.where(use, b_p, rev)
+
+
+def _fast_finish(cand, gains, t_cmp, n_samples, model_bits,
+                 prm: EngineParams, oma: bool, c: int,
+                 pairing: str) -> EngineSchedule:
+    """Stages 3-5 for an admission mask with exactly ``c`` members per
+    row: rank, pairing under the policy, power/rates (the pairscore
+    kernel on a CUDA device), round time, client-space outputs."""
+    b, n = gains.shape
+    n0b, pmax, bw = prm.noise_power_w, prm.max_power_w, prm.bandwidth_hz
+    dev = gains.device
+    odd = c % 2
+    c_pair = c - odd
+    m = c_pair // 2
+    sg_c, sid_c = _sort_admitted(cand, gains, c)
+    score = lambda g_i, g_j: pairscore.pairscore(g_i, g_j, n0b=n0b,
+                                                 pmax=pmax, bw=bw, oma=oma)
+
+    # rates/powers in rank space and the (strong, weak) client ids
     parts_r, parts_p = [], []
-    if m:
-        g_str = sg_c[:, :m]
-        g_wk = sg_c[:, m:c_pair].flip(1)
-        p_i, p_j, r_i, r_j = pairscore.pairscore(
-            g_str, g_wk, n0b=n0b, pmax=pmax, bw=bw, oma=oma)
-        parts_r += [r_i, r_j.flip(1)]
-        parts_p += [p_i, p_j.flip(1)]
+    if pairing == "strong_weak" or m == 0:
+        # rank p (strong) pairs rank c_pair-1-p (weak)
+        if m:
+            p_i, p_j, r_i, r_j = score(sg_c[:, :m],
+                                       sg_c[:, m:c_pair].flip(1))
+            parts_r += [r_i, r_j.flip(1)]
+            parts_p += [p_i, p_j.flip(1)]
+        strong_tab = [sid_c[:, :m]]
+        weak_tab = [sid_c[:, m:c_pair].flip(1)]
+    elif pairing == "adjacent":
+        p_i, p_j, r_i, r_j = score(sg_c[:, 0:c_pair:2], sg_c[:, 1:c_pair:2])
+        parts_r.append(torch.stack([r_i, r_j], dim=-1).reshape(b, c_pair))
+        parts_p.append(torch.stack([p_i, p_j], dim=-1).reshape(b, c_pair))
+        strong_tab = [sid_c[:, 0:c_pair:2]]
+        weak_tab = [sid_c[:, 1:c_pair:2]]
+    else:
+        strong_pos, weak_pos = _matching_positions(
+            sg_c, sid_c, t_cmp, model_bits, prm, oma, pairing, c_pair)
+        p_i, p_j, r_i, r_j = score(sg_c.gather(1, strong_pos),
+                                   sg_c.gather(1, weak_pos))
+        # back to rank space: [strong_pos | weak_pos] is a permutation
+        pos = torch.cat([strong_pos, weak_pos], dim=1)
+        zeros = torch.zeros((b, c_pair), dtype=torch.float32, device=dev)
+        parts_r.append(zeros.scatter(1, pos, torch.cat([r_i, r_j], dim=1)))
+        parts_p.append(zeros.scatter(1, pos, torch.cat([p_i, p_j], dim=1)))
+        strong_tab = [sid_c.gather(1, strong_pos)]
+        weak_tab = [sid_c.gather(1, weak_pos)]
     if odd:
         parts_r.append(pairscore.solo_rate_math(sg_c[:, c - 1:c], n0b=n0b,
                                                 pmax=pmax, bw=bw))
         parts_p.append(torch.full((b, 1), pmax, dtype=torch.float32,
-                                  device=gains.device))
+                                  device=dev))
+        strong_tab.append(sid_c[:, c - 1:c])
+        weak_tab.append(torch.full((b, 1), -1, dtype=torch.int64,
+                                   device=dev))
     rate_srt = torch.cat(parts_r, dim=1)
     pow_srt = torch.cat(parts_p, dim=1)
 
@@ -228,28 +321,164 @@ def _fast_finish(cand, gains, t_cmp, n_samples, model_bits,
     mb = model_bits[:, None]
     tot = t_cmp.gather(1, sid_c) + mb / torch.clamp(rate_srt, min=1e-9)
     t_round = tot.max(dim=1).values
-    zeros = torch.zeros((b, n), dtype=torch.float32, device=gains.device)
+    zeros = torch.zeros((b, n), dtype=torch.float32, device=dev)
     rates = zeros.scatter(1, sid_c, rate_srt)
     powers = zeros.scatter(1, sid_c, pow_srt)
     t_com = mb / torch.clamp(rates, min=1e-9)
     w = n_samples * cand
     w = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-12)
 
-    # pair table: strong ranks, their weak partners, the solo row
-    # ((c + 1) // 2 rows: no padding, since c >= 1)
-    strong_tab = [sid_c[:, :m]]
-    weak_tab = [sid_c[:, m:c_pair].flip(1)]
-    fill = lambda k: torch.full((b, k), -1, dtype=torch.int64,
-                                device=gains.device)
-    if odd:
-        strong_tab.append(sid_c[:, c - 1:c])
-        weak_tab.append(fill(1))
-
+    # pair table ((c + 1) // 2 rows: no padding, since c >= 1)
     return EngineSchedule(
         selected=cand, pair_strong=torch.cat(strong_tab, dim=1),
         pair_weak=torch.cat(weak_tab, dim=1), rates=rates, powers=powers,
         t_cmp=t_cmp, t_com=t_com, t_round=t_round, agg_weights=w,
-        evicted=torch.zeros((b, n), dtype=torch.bool, device=gains.device))
+        evicted=torch.zeros((b, n), dtype=torch.bool, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# joint (pairing-aware) selection
+# ---------------------------------------------------------------------------
+
+
+def _completion_table(g_sorted, t_cmp_sorted, model_bits, prm: EngineParams,
+                      oma: bool):
+    """fp32 ``pairscore.completion_table`` with the engine's params (the
+    pairscore kernel scores the grid on a CUDA device)."""
+    return pairscore.completion_table(
+        g_sorted, t_cmp_sorted, model_bits, n0b=prm.noise_power_w,
+        pmax=prm.max_power_w, bw=prm.bandwidth_hz, oma=oma)
+
+
+def _solo_completion(gains, t_cmp, model_bits, prm: EngineParams):
+    """T_cmp + S / R of a client alone on a subchannel at full power."""
+    return t_cmp + model_bits / torch.clamp(
+        pairscore.solo_rate_math(gains, n0b=prm.noise_power_w,
+                                 pmax=prm.max_power_w, bw=prm.bandwidth_hz),
+        min=1e-9)
+
+
+def _sw_completion(mask, gains, t_cmp, model_bits, prm: EngineParams,
+                   oma: bool, c: int):
+    """Strong_weak completion of the ``c``-member sets in ``mask``:
+    (t_round (B,), per-rank completions (B, c), member ids by rank
+    (B, c))."""
+    sg, sidx = torch.sort(torch.where(mask, gains, -torch.inf), dim=1,
+                          descending=True, stable=True)
+    sg, sidx = sg[:, :c], sidx[:, :c]
+    tc = t_cmp.gather(1, sidx)
+    odd = c % 2
+    cp = c - odd
+    m = cp // 2
+    mb = model_bits[:, None]
+    parts = []
+    if m:
+        _, _, r_i, r_j = pairscore.pairscore(
+            sg[:, :m], sg[:, m:cp].flip(1), n0b=prm.noise_power_w,
+            pmax=prm.max_power_w, bw=prm.bandwidth_hz, oma=oma)
+        comp_s = tc[:, :m] + mb / torch.clamp(r_i, min=1e-9)
+        comp_w = tc[:, m:cp].flip(1) + mb / torch.clamp(r_j, min=1e-9)
+        parts = [comp_s, comp_w.flip(1)]
+    if odd:
+        parts.append(_solo_completion(sg[:, cp:], tc[:, cp:], mb, prm))
+    comp = torch.cat(parts, dim=1)
+    return comp.amax(dim=1), comp, sidx
+
+
+def _joint_enum_mask(gains, t_cmp, model_bits, prm: EngineParams, oma: bool,
+                     n: int, c: int):
+    """Exhaustive joint admission (n <= JOINT_ENUM_MAX_N): every C(n, c)
+    candidate set at its optimal matching, argmin-first in the
+    ``enumerate_subsets`` x ``enumerate_matchings`` order. Solo: the
+    weakest member when c is odd."""
+    b = gains.shape[0]
+    dev = gains.device
+    subsets = torch.as_tensor(enumerate_subsets(n, c), device=dev)
+    g_s = gains[:, subsets]                                     # (B, L, c)
+    sg, sidx = torch.sort(g_s, dim=-1, descending=True, stable=True)
+    st = t_cmp[:, subsets].gather(-1, sidx)
+    odd = c % 2
+    cp = c - odd
+    m = cp // 2
+    if m:
+        table = _completion_table(sg[..., :cp], st[..., :cp],
+                                  model_bits[:, None], prm, oma)
+        mt = torch.as_tensor(enumerate_matchings(m), device=dev)
+        vals = table[:, :, mt[:, :, 0], mt[:, :, 1]]            # (B,L,M,m)
+        t_set = vals.amax(dim=-1).amin(dim=-1)                  # (B, L)
+    else:
+        t_set = torch.zeros(g_s.shape[:2], dtype=gains.dtype, device=dev)
+    if odd:
+        t_set = torch.maximum(t_set, _solo_completion(
+            sg[..., c - 1], st[..., c - 1], model_bits[:, None], prm))
+    members = subsets[t_set.argmin(dim=1)]                      # (B, c)
+    return torch.zeros((b, n), dtype=torch.bool, device=dev).scatter_(
+        1, members, True)
+
+
+def _joint_swap_mask(cand, gains, t_cmp, model_bits, prm: EngineParams,
+                     oma: bool, c: int):
+    """Swap/prune local search from the greedy admission:
+    JOINT_SWAP_ITERS iterations, each swapping the bottleneck member for
+    the non-member with the best solo completion proxy, kept only on a
+    strict strong_weak improvement (a rejected swap freezes the lane)."""
+    rows = torch.arange(gains.shape[0], device=gains.device)
+    proxy = _solo_completion(gains, t_cmp, model_bits[:, None], prm)
+    mask = cand
+    cur_t, comp, sidx = _sw_completion(mask, gains, t_cmp, model_bits, prm,
+                                       oma, c)
+    for _ in range(JOINT_SWAP_ITERS):
+        bneck = sidx.gather(1, comp.argmax(dim=1, keepdim=True))[:, 0]
+        incoming = torch.where(mask, torch.inf, proxy).argmin(dim=1)
+        new_mask = mask.clone()
+        new_mask[rows, bneck] = False
+        new_mask[rows, incoming] = True
+        new_t, new_comp, new_sidx = _sw_completion(
+            new_mask, gains, t_cmp, model_bits, prm, oma, c)
+        imp = new_t < cur_t
+        mask = torch.where(imp[:, None], new_mask, mask)
+        comp = torch.where(imp[:, None], new_comp, comp)
+        sidx = torch.where(imp[:, None], new_sidx, sidx)
+        cur_t = torch.where(imp, new_t, cur_t)
+    return mask
+
+
+def _joint_refine_mask(cand, gains, t_cmp, model_bits, prm: EngineParams,
+                       oma: bool, c: int):
+    """Joint admission for 0 < c < n, without the realized-time guard: the
+    caller finishes both masks and keeps the strictly faster
+    (``_pick_faster``)."""
+    n = gains.shape[-1]
+    if n <= JOINT_ENUM_MAX_N:
+        return _joint_enum_mask(gains, t_cmp, model_bits, prm, oma, n, c)
+    return _joint_swap_mask(cand, gains, t_cmp, model_bits, prm, oma, c)
+
+
+def _pick_faster(a: EngineSchedule, b: EngineSchedule) -> EngineSchedule:
+    """Per-batch-element never-worse guard: ``a`` where strictly faster,
+    else ``b`` (ties keep ``b``, the greedy set)."""
+    better = a.t_round < b.t_round
+    return EngineSchedule(*(
+        torch.where(better.reshape(better.shape + (1,) * (x.dim() - 1)),
+                    x, y) for x, y in zip(a, b)))
+
+
+def _fast_schedule_batch(priority, gains, t_cmp, n_samples, model_bits,
+                         prm: EngineParams, oma: bool, c: int,
+                         pairing: str, selection: str) -> EngineSchedule:
+    """Greedy admission -> finish; ``selection="joint"`` also refines the
+    admitted set and keeps the refined schedule only where strictly
+    faster under the active pairing policy."""
+    cand = _admit(priority, gains, c)
+    out = _fast_finish(cand, gains, t_cmp, n_samples, model_bits, prm, oma,
+                       c, pairing)
+    if selection == "joint" and 0 < c < gains.shape[-1]:
+        refined = _joint_refine_mask(cand, gains, t_cmp, model_bits, prm,
+                                     oma, c)
+        out = _pick_faster(_fast_finish(refined, gains, t_cmp, n_samples,
+                                        model_bits, prm, oma, c, pairing),
+                           out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -304,10 +533,8 @@ class WirelessEngine:
         priority. ``admission`` (auto | full_sort | segmented) names the
         reference's implementation choice; all three give one mask here.
         """
-        if _check_pairing(pairing or self.pairing) != "strong_weak":
-            raise NotImplementedError(_LATER["pairing"])
-        if _check_selection(selection or self.selection) != "greedy_set":
-            raise NotImplementedError(_LATER["selection"])
+        pairing = _check_pairing(pairing or self.pairing)
+        selection = _check_selection(selection or self.selection)
         _check_admission(admission or self.admission)
         if torch.is_tensor(t_budget) or float(t_budget) > 0.0:
             raise NotImplementedError(_LATER["budget"])
@@ -322,9 +549,9 @@ class WirelessEngine:
         else:
             priority = self._tensor(priority)
         t_cmp = _compute_times(self.prm, n_samples, self._tensor(cpu_freq))
-        cand = _admit(priority, gains, c)
-        return _fast_finish(cand, gains, t_cmp, n_samples, model_bits,
-                            self.prm, oma, c)
+        return _fast_schedule_batch(priority, gains, t_cmp, n_samples,
+                                    model_bits, self.prm, oma, c, pairing,
+                                    selection)
 
     def schedule(self, env: RoundEnv, *, t_budget: Optional[float] = None,
                  oma: bool = False, priority=None,
@@ -347,6 +574,110 @@ class WirelessEngine:
             "policy": policy, "engine": "torch",
             "evicted": np.flatnonzero(
                 out.evicted[0].cpu().numpy()).tolist()})
+
+
+    # -- Monte-Carlo rollout ----------------------------------------------
+
+    def montecarlo_rounds(self, gains_seq, n_samples, cpu_freq, model_bits,
+                          *, policy: str = "age_noma", t_budget: float = 0.0,
+                          seed: int = 0, shard: bool = False,
+                          pairing: Optional[str] = None,
+                          selection: Optional[str] = None,
+                          admission: Optional[str] = None,
+                          cell_seq=None) -> dict:
+        """Roll the AoU state machine over R rounds for S seeds, one batched
+        step per round: gains_seq (R, S, N); n_samples/cpu_freq either
+        (S, N) static or (R, S, N) per round (pre-sampled).
+
+        Returns the reference's keys, as tensors on the engine's device:
+        t_round, n_selected, max_age, t_comp_bottleneck, t_up_bottleneck,
+        n_evicted (R, S), aou_hist (R, S, 7), participation and
+        final_ages (S, N). ``policy="random"`` draws its priorities from a
+        ``torch.Generator`` seeded with ``seed``, one draw per round (it
+        cannot reproduce the reference's ``jax.random`` stream).
+        """
+        if shard:
+            raise NotImplementedError(_LATER["shard"])
+        if cell_seq is not None:
+            raise NotImplementedError(_LATER["cells"])
+        if policy == "age_noma_budget" or float(t_budget) > 0.0:
+            raise NotImplementedError(_LATER["budget"])
+        gains_seq = self._tensor(gains_seq)
+        n_samples = self._tensor(n_samples)
+        cpu_freq = self._tensor(cpu_freq)
+        per_round = lambda x, i: x if x.dim() == 2 else x[i]
+
+        def env_fn(i):
+            return (gains_seq[i], per_round(n_samples, i),
+                    per_round(cpu_freq, i))
+
+        return self._mc_loop(env_fn, gains_seq.shape[0], model_bits,
+                             policy=policy, seed=seed, pairing=pairing,
+                             selection=selection, admission=admission)
+
+    def _mc_loop(self, env_fn, rounds: int, model_bits, *, policy: str,
+                 seed: int, pairing: Optional[str] = None,
+                 selection: Optional[str] = None,
+                 admission: Optional[str] = None) -> dict:
+        """R-round rollout, a Python loop of per-round steps; ``env_fn(i)``
+        yields round i's (gains, n_samples, cpu_freq)."""
+        if policy not in MC_POLICIES:
+            raise ValueError(f"unknown montecarlo policy {policy!r} "
+                             f"(expected one of {MC_POLICIES})")
+        pairing = _check_pairing(pairing or self.pairing)
+        selection = _check_selection(selection or self.selection)
+        _check_admission(admission or self.admission)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        mb = self._tensor(model_bits)
+        ages = part = None
+        keys = ("t_round", "n_selected", "max_age", "t_comp_bottleneck",
+                "t_up_bottleneck", "n_evicted", "aou_hist")
+        out = {k: [] for k in keys}
+        for i in range(rounds):
+            gains, n_samples, cpu_freq = env_fn(i)
+            if ages is None:
+                ages = torch.ones(gains.shape, dtype=torch.float32,
+                                  device=self.device)
+                part = torch.zeros(gains.shape, dtype=torch.float32,
+                                   device=self.device)
+            ages, part, diag = _montecarlo_step(
+                ages, part, gains, n_samples, cpu_freq, mb, i, gen,
+                prm=self.prm, gamma=self.flcfg.age_exponent, policy=policy,
+                pairing=pairing, selection=selection)
+            for k in keys:
+                out[k].append(diag[k])
+        out = {k: torch.stack(v) for k, v in out.items()}
+        out["participation"] = part
+        out["final_ages"] = ages
+        return out
+
+
+def _montecarlo_step(ages, part, gains, n_samples, cpu_freq, model_bits,
+                     round_idx: int, gen, *, prm: EngineParams, gamma: float,
+                     policy: str, pairing: str, selection: str):
+    """One Monte-Carlo round over all seeds: the policy's priority, the
+    fast schedule, the age update. Returns (ages, participation, the
+    round's diag leaves plus max_age)."""
+    s, n = gains.shape
+    c = min(prm.slots, n)
+    t_cmp = _compute_times(prm, n_samples, cpu_freq)
+    mb = model_bits.expand(s)
+    if policy in ("age_noma", "oma_age"):
+        prio = _age_priority(ages, n_samples, gamma)
+    elif policy == "channel":
+        prio = gains
+    elif policy == "random":
+        prio = torch.rand(gains.shape, generator=gen, device=gains.device)
+    else:                                           # round_robin
+        prio = round_robin_priority(round_idx, n, c,
+                                    gains.device).expand(s, n)
+    sched = _fast_schedule_batch(prio, gains, t_cmp, n_samples, mb, prm,
+                                 policy == "oma_age", c, pairing, selection)
+    sel = sched.selected
+    ages = torch.where(sel, 1.0, ages + 1.0)
+    diag = schedule_diag(sched, ages)
+    diag["max_age"] = ages.amax(dim=1)
+    return ages, part + sel, diag
 
 
 def _check_pairing(pairing: str) -> str:

@@ -1,6 +1,7 @@
 """Round-planner data types and diagnostics (numpy, host side).
 
-Copy of ``RoundEnv``, ``Schedule`` and ``schedule_diag`` from
+Copy of ``RoundEnv``, ``Schedule``, ``schedule_diag``, ``JOINT_ENUM_MAX_N``,
+``JOINT_SWAP_ITERS`` and ``enumerate_subsets`` from
 ``src/repro/core/plan.py``, and of ``AOU_BUCKET_EDGES`` and
 ``aou_histogram`` from ``src/repro/obs/metrics.py``. The engine
 (core/engine.py) returns its batched result as tensors and hands one row
@@ -9,6 +10,8 @@ back as a ``Schedule``, the contract the FL server reads.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -16,6 +19,24 @@ import numpy as np
 # AoU histogram bucket upper edges (ages are integers >= 1): bucket i
 # counts ages in (edge[i-1], edge[i]], the last bucket counts > edge[-1].
 AOU_BUCKET_EDGES = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0)
+
+# n <= this: joint admission enumerates ALL C(n, c) candidate sets x all
+# matchings; above it the swap/prune local search runs
+JOINT_ENUM_MAX_N = 8
+
+# swap/prune local search length: each iteration swaps the bottleneck
+# client for the best-proxy non-member and keeps the swap only on a strict
+# strong_weak-completion improvement
+JOINT_SWAP_ITERS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def enumerate_subsets(n: int, c: int) -> np.ndarray:
+    """All size-``c`` subsets of ``range(n)`` as a (C(n,c), c) int array in
+    ``itertools.combinations`` order (the argmin-first tiebreak of the
+    joint enumeration)."""
+    return np.array(list(itertools.combinations(range(n), c)),
+                    dtype=np.int64).reshape(-1, c)
 
 
 def aou_histogram(ages, edges: Sequence[float] = AOU_BUCKET_EDGES

@@ -17,31 +17,17 @@
 // so no padding is read or written. At the shapes the FL round gives it
 // (5 pairs) the launch itself is the cost.
 //
-// Every operation is an explicitly rounded IEEE intrinsic (`__fmul_rn` and
-// friends are never contracted into FMAs, and the build uses no fast-math),
-// in the expression order of the reference's `_pair_math`, so the fp32
-// results track the plain PyTorch version and the JAX twin.
+// The pair math itself is `repro::pair_math` in pair_math.cuh, shared with
+// the planner kernel (planner.cu).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "pair_math.cuh"
+
 namespace {
 
-struct PairConsts {
-  float two_pmax;   // fp32(2 * P)
-  float four_pmax;  // fp32(4 * P)
-  float pmax;       // fp32(P)
-  float n0b;        // fp32(N0 B)
-  float n0b_sq;     // fp32(N0B * N0B)
-  float bw;         // fp32(B)
-  float half_bw;    // fp32(0.5 * B)
-  float ln2;        // fp32(ln 2)
-  float tiny;       // fp32(1e-30)
-};
-
-__device__ __forceinline__ float rate(float scale, float snr, float ln2) {
-  return __fdiv_rn(__fmul_rn(scale, log1pf(snr)), ln2);
-}
+using repro::PairConsts;
 
 __global__ void pairscore_kernel(const float* __restrict__ gi,
                                  const float* __restrict__ gj,
@@ -54,29 +40,11 @@ __global__ void pairscore_kernel(const float* __restrict__ gi,
   for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        t < n; t += stride) {
-    const float g_i = gi[t];
-    const float g_j = gj[t];
-    float p_i, p_j, r_i, r_j;
-    if (oma) {
-      p_i = k.pmax;
-      p_j = k.pmax;
-      r_i = rate(k.half_bw, __fdiv_rn(__fmul_rn(k.pmax, g_i), k.n0b), k.ln2);
-      r_j = rate(k.half_bw, __fdiv_rn(__fmul_rn(k.pmax, g_j), k.n0b), k.ln2);
-    } else {
-      const float num = __fmul_rn(__fmul_rn(k.two_pmax, g_i), k.n0b);
-      const float disc =
-          __fadd_rn(k.n0b_sq, __fmul_rn(__fmul_rn(k.four_pmax, g_i), k.n0b));
-      const float y = __fdiv_rn(num, __fadd_rn(k.n0b, __fsqrt_rn(disc)));
-      p_j = fminf(__fdiv_rn(y, fmaxf(g_j, k.tiny)), k.pmax);
-      p_i = k.pmax;
-      const float interf = __fadd_rn(__fmul_rn(p_j, g_j), k.n0b);
-      r_i = rate(k.bw, __fdiv_rn(__fmul_rn(p_i, g_i), interf), k.ln2);
-      r_j = rate(k.bw, __fdiv_rn(__fmul_rn(p_j, g_j), k.n0b), k.ln2);
-    }
-    pi[t] = p_i;
-    pj[t] = p_j;
-    ri[t] = r_i;
-    rj[t] = r_j;
+    const repro::PairOut o = repro::pair_math(gi[t], gj[t], k, oma);
+    pi[t] = o.p_i;
+    pj[t] = o.p_j;
+    ri[t] = o.r_i;
+    rj[t] = o.r_j;
   }
 }
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``run_experiment`` in ``src/repro/fl/rounds.py``. The
 policy comparisons and the Monte-Carlo sweep (``run_montecarlo``) are
-ROADMAP queue 1.
+ROADMAP queue 2; the pre-sampled rollout it drives is
+``WirelessEngine.montecarlo_rounds`` (core/engine.py).
 """
 from __future__ import annotations
 

@@ -3,12 +3,17 @@ training substrate (models/, optim/, data/), on one device.
 
 Counterpart of ``FLServer`` and ``History`` in ``src/repro/fl/server.py``
 for one cell, no update predictor, and every policy but
-``age_noma_budget``. Per round:
+``age_noma_budget``, under every pairing policy and both selection modes
+(``FLConfig.pairing`` / ``selection``, or the ``pairing=`` / ``selection=``
+overrides). As on the reference's engine path, ``History.joint_swaps``
+reads 0: the engine's joint refinement is branch-free and reports no
+swap count. Per round:
 
   1. step the wireless scenario -> gains/n_samples/cpu; build RoundEnv
      (incl. the current AoU ages);
   2. run the selection policy through the engine (core/engine.py) ->
-     Schedule (mask, pairs, powers, rates, T_round);
+     Schedule (mask, pairs, powers, rates, T_round), with the pairing
+     policy and the selection mode of the config;
   3. run local SGD for each selected client, writing its delta into one
      row of a (C, P) fp32 buffer;
   4. FedAvg-aggregate the rows (one fedagg launch) and apply;
@@ -90,11 +95,11 @@ class FLServer:
             fl = dataclasses.replace(fl, selection=selection)
         if policy == "age_noma_budget":
             raise NotImplementedError(
-                "policy 'age_noma_budget' is ROADMAP queue 3 (budget "
+                "policy 'age_noma_budget' is ROADMAP queue 1 (budget "
                 "eviction loop)")
         if fl.predictor != "none":
             raise NotImplementedError(
-                f"predictor {fl.predictor!r} is ROADMAP queue 5")
+                f"predictor {fl.predictor!r} is ROADMAP queue 3")
         self.cfg = model_cfg
         self.fl = fl
         self.noma = nomacfg

@@ -7,10 +7,12 @@ launches its kernel, and nowhere else; ``launch_counts`` reads them and
 from repro_torch.kernels import backend as _backend
 from repro_torch.kernels import fedagg as _fedagg
 from repro_torch.kernels import pairscore as _pairscore
+from repro_torch.kernels import planner as _planner
 
 WRAPPERS = {"probe_kernel": _backend.probe_kernel,
             "pairscore": _pairscore.pairscore,
-            "fedagg": _fedagg.fedagg}
+            "fedagg": _fedagg.fedagg,
+            "planner": _planner.planner_tables}
 
 
 def launch_counts() -> dict:

@@ -45,6 +45,8 @@ SIGNATURES = {
     "repro_pairscore": (_P, _P, _P, _P, _P, _P, _L,
                         _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P),
     "repro_fedagg": (_P, _I, _I, _L, _P, _P, _I, _L, _I, _P),
+    "repro_planner": (_P, _P, _P, _P, _P, _P, _P, _L, _I,
+                      _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P),
 }
 
 
@@ -76,8 +78,9 @@ def sources() -> list[Path]:
 
 
 def _digest(srcs: list[Path]) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in srcs + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

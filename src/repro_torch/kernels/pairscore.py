@@ -1,7 +1,8 @@
 """Closed-form NOMA pair power allocation + SIC rate scoring.
 
 Counterpart of ``src/repro/kernels/pairscore.py`` (``_pair_math``,
-``solo_rate_math``, ``pairscore_pallas``).
+``solo_rate_math``, ``pairscore_pallas``, ``pair_rate_tables``,
+``completion_table``, ``effective_power_table``).
 
 ``pairscore`` is the wrapper of the hand-written CUDA kernel
 ``csrc/pairscore.cu``, which replaces the TPU kernel ``_pairscore_kernel``
@@ -13,7 +14,10 @@ kernel is one flat pass, one element per thread, masked tail, no padding.
 the reference's order (conjugate root, ``max(g_j, 1e-30)``,
 ``log1p(..) / LN2``), so fp32 rounding tracks the JAX twin. The wrapper
 takes it only for CPU tensors; for CUDA tensors it launches the kernel or
-raises.
+raises. ``pair_rate_tables`` and ``completion_table`` (the fp32 table of
+the joint enumeration) score their broadcast grids through the
+``pairscore`` wrapper; ``effective_power_table`` is plain tensor ops, as
+the reference computes it in XLA.
 """
 from __future__ import annotations
 
@@ -86,3 +90,43 @@ def pairscore(g_i: torch.Tensor, g_j: torch.Tensor, *, n0b: float,
 
 
 pairscore.launches = 0
+
+
+def pair_rate_tables(g_strong, g_weak, *, n0b: float, pmax: float,
+                     bw: float, oma: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., K, N) per-user SIC rate tables (r_i, r_j): entry [k, n] is the
+    pair (strong user k, weak user n); one ``pairscore`` call over the
+    broadcast grid."""
+    k, n = g_strong.shape[-1], g_weak.shape[-1]
+    shape = g_strong.shape[:-1] + (k, n)
+    gi = g_strong[..., :, None].expand(shape)
+    gj = g_weak[..., None, :].expand(shape)
+    _, _, r_i, r_j = pairscore(gi, gj, n0b=n0b, pmax=pmax, bw=bw, oma=oma)
+    return r_i, r_j
+
+
+def completion_table(g_sorted, t_cmp_sorted, model_bits, *, n0b: float,
+                     pmax: float, bw: float, oma: bool = False
+                     ) -> torch.Tensor:
+    """(..., c, c) fp32 pair completion-time table over gain-sorted
+    candidates: entry [p, q] = max over the two users of T_cmp + S/R with
+    rank p strong and rank q weak. ``model_bits`` broadcasts over the
+    leading dims."""
+    r_i, r_j = pair_rate_tables(g_sorted, g_sorted, n0b=n0b, pmax=pmax,
+                                bw=bw, oma=oma)
+    mb = torch.as_tensor(model_bits, dtype=torch.float32,
+                         device=g_sorted.device)[..., None, None]
+    t = t_cmp_sorted
+    return torch.maximum(t[..., :, None] + mb / torch.clamp(r_i, min=1e-9),
+                         t[..., None, :] + mb / torch.clamp(r_j, min=1e-9))
+
+
+def effective_power_table(g_strong, g_weak, *, n0b: float,
+                          pmax: float) -> torch.Tensor:
+    """(..., K, N) table of min(y*(g_i), P g_j): the strictly monotone
+    min-rate surrogate whose structural ties are precision-exact (the
+    greedy pairing policy's score surface)."""
+    y = 2.0 * pmax * g_strong * n0b / (
+        n0b + torch.sqrt(n0b * n0b + 4.0 * pmax * g_strong * n0b))
+    return torch.minimum(y[..., :, None], pmax * g_weak[..., None, :])

@@ -39,11 +39,11 @@ class DecoderLM(nn.Module):
         super().__init__()
         if cfg.family != "dense" or cfg.is_moe or cfg.n_prefix_tokens:
             raise NotImplementedError(
-                f"model family {cfg.family!r} is ROADMAP queue 6; the port "
+                f"model family {cfg.family!r} is ROADMAP queue 4; the port "
                 f"builds the dense family")
         if cfg.rope_frac <= 0.0 or cfg.sliding_window:
             raise NotImplementedError(
-                "NoPE and sliding-window dense variants are ROADMAP queue 6")
+                "NoPE and sliding-window dense variants are ROADMAP queue 4")
         dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(

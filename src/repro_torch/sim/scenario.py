@@ -9,7 +9,7 @@ fading vector — so the same seed gives the same gains, and hence the same
 selections, in both packages.
 
 The dynamic scenarios of the reference (mobility, correlated fading,
-shadowing, bursty compute, data arrival) are ROADMAP queue 4 and raise
+shadowing, bursty compute, data arrival) are ROADMAP queue 2 and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -42,7 +42,7 @@ def get_scenario_config(name: str) -> ScenarioConfig:
         return SCENARIOS[name]
     if name in LATER_SCENARIOS:
         raise NotImplementedError(
-            f"scenario {name!r} is ROADMAP queue 4 (scenario sampler); "
+            f"scenario {name!r} is ROADMAP queue 2 (scenario sampler); "
             f"the port runs {sorted(SCENARIOS)}")
     raise ValueError(f"unknown scenario {name!r} "
                      f"(registered: {sorted(SCENARIOS) + list(LATER_SCENARIOS)})")
@@ -54,7 +54,7 @@ class Scenario:
     def __init__(self, scfg: ScenarioConfig, ncfg: NOMAConfig,
                  flcfg: FLConfig):
         if flcfg.n_cells > 1:
-            raise NotImplementedError("n_cells > 1 is ROADMAP queue 3")
+            raise NotImplementedError("n_cells > 1 is ROADMAP queue 1")
         self.cfg = scfg
         self.ncfg = ncfg
         self.cpu_lo = flcfg.cpu_freq_range_ghz[0] * 1e9

@@ -12,10 +12,11 @@ import torch
 from repro_torch.configs import FLConfig, NOMAConfig
 from repro_torch.core.engine import WirelessEngine
 from repro_torch.fl.aggregate import aggregate_deltas
-from repro_torch.kernels import backend, fedagg, pairscore
+from repro_torch.kernels import backend, fedagg, pairscore, planner
 
 KW = dict(n0b=1e-14, pmax=0.2, bw=1e6)
 PAIR_TOL = dict(rtol=1e-6, atol=1e-9)
+BF16_ULP = 2.0 ** -7
 
 
 def gains(m, seed, *, shape):
@@ -29,6 +30,14 @@ def updates(c, n, seed):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((c, n)).astype(np.float32),
             rng.uniform(0.0, 1.0, c).astype(np.float32))
+
+
+def planner_inputs(b, c, seed, dev):
+    rng = np.random.default_rng(seed)
+    g = np.sort(rng.uniform(1e-14, 1e-9, (b, c)), axis=1)[:, ::-1].copy()
+    t = rng.uniform(0.05, 0.5, (b, c))
+    to = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)
+    return to(g), to(t), to(np.full(b, 4e6))
 
 
 def cuda_device():
@@ -104,3 +113,50 @@ class TestOnCard:
         torch.testing.assert_close(
             agg.cpu(), torch.from_numpy(np.einsum("cn,c->n", u, w / w.sum())),
             rtol=1e-5, atol=1e-6)
+
+    @pytest.mark.parametrize("oma", [False, True])
+    @pytest.mark.parametrize("b,c", [(1, 10), (32, 10), (64, 256), (3, 1),
+                                     (3, 2), (3, 3), (3, 7), (3, 129)])
+    def test_planner(self, b, c, oma):
+        """The bf16 table within one bf16 ulp; row_min and t_sw, reduced
+        from fp32, to rtol 1e-6."""
+        dev = cuda_device()
+        g, t, mb = planner_inputs(b, c, b + c, dev)
+        before = planner.planner_tables.launches
+        out = planner.planner_tables(g, t, mb, oma=oma, **KW)
+        assert planner.planner_tables.launches == before + 1
+        ref = planner.planner_tables_plain(g, t, mb, oma=oma, **KW)
+        torch.cuda.synchronize()
+        assert out[0].dtype == torch.bfloat16
+        torch.testing.assert_close(out[0].float(), ref[0].float(),
+                                   rtol=BF16_ULP, atol=0.0)
+        torch.testing.assert_close(out[1], ref[1], rtol=1e-6, atol=0.0)
+        torch.testing.assert_close(out[2], ref[2], rtol=1e-6, atol=0.0)
+
+    def test_hungarian_and_montecarlo_launch_the_planner(self):
+        """The engine's hungarian finish takes its table from the planner
+        kernel (one launch per finish), so does every round of the
+        Monte-Carlo rollout, and the card agrees with the CPU."""
+        dev = cuda_device()
+        rng = np.random.default_rng(5)
+        n = 40
+        g = rng.uniform(1e-14, 1e-9, (2, n))
+        ns, cpu = rng.uniform(100, 1000, (2, n)), rng.uniform(5e8, 2e9, (2, n))
+        ages = rng.integers(1, 30, (2, n)).astype(float)
+        card = WirelessEngine(NOMAConfig(), FLConfig(), device=dev,
+                              pairing="hungarian")
+        before = planner.planner_tables.launches
+        out = card.schedule_batch(g, ns, cpu, ages, 1e6)
+        assert planner.planner_tables.launches == before + 1
+        ref = WirelessEngine(NOMAConfig(), FLConfig(), device="cpu",
+                             pairing="hungarian").schedule_batch(
+            g, ns, cpu, ages, 1e6)
+        assert torch.equal(out.selected.cpu(), ref.selected)
+        torch.testing.assert_close(out.t_round.cpu(), ref.t_round,
+                                   rtol=1e-2, atol=0.0)
+        gains = rng.uniform(1e-14, 1e-9, (4, 3, n))
+        before = planner.planner_tables.launches
+        mc = card.montecarlo_rounds(gains, ns[:1].repeat(3, 0),
+                                    cpu[:1].repeat(3, 0), 1e6)
+        assert planner.planner_tables.launches == before + 4
+        assert bool((mc["n_selected"] == 10).all())

@@ -4,6 +4,13 @@ The same numpy inputs go to the port's ``schedule_batch`` on the CPU, the
 reference JAX engine (``kernel_backend="xla"``) and the numpy fp64
 scheduler. Masks and pair tables match exactly; powers to atol 1e-5;
 rates and round times to rtol 1e-4 (DESIGN.md section 5).
+
+The hungarian policy reads the planner's bf16 table, so it is held against
+the reference under ``kernel_backend="pallas_interpret"``, whose table is
+the same bf16 round trip. ``montecarlo_rounds`` is held against the
+reference's rollout on the same pre-sampled gains; its ``random`` policy
+draws from a ``torch.Generator`` and cannot reproduce ``jax.random``, so it
+is tested by its invariants.
 """
 import dataclasses
 
@@ -48,9 +55,14 @@ def port_engine(k, **kw):
                             device="cpu", **kw)
 
 
-def jax_engine(k):
+def jax_engine(k, kernel_backend="xla", **kw):
     return JEngine(JNOMAConfig(n_subchannels=k), JFLConfig(),
-                   kernel_backend="xla")
+                   kernel_backend=kernel_backend, **kw)
+
+
+# the reference backend whose tables match the port's for each policy
+REF_BACKEND = {"strong_weak": "xla", "adjacent": "xla",
+               "greedy_matching": "xla", "hungarian": "pallas_interpret"}
 
 
 def assert_matches_jax(out, ref):
@@ -186,19 +198,188 @@ class TestContract:
         assert sorted(top.tolist()) == sorted((3 * 4 + i) % 10
                                               for i in range(4))
 
-    @pytest.mark.parametrize("kw,exc", [
-        (dict(pairing="hungarian"), NotImplementedError),
-        (dict(selection="joint"), NotImplementedError),
-        (dict(t_budget=1.0), NotImplementedError),
-        (dict(pairing="nope"), ValueError),
-        (dict(admission="nope"), ValueError),
+    @pytest.mark.parametrize("method,kw,exc", [
+        ("schedule_batch", dict(t_budget=1.0), NotImplementedError),
+        ("schedule_batch", dict(pairing="nope"), ValueError),
+        ("schedule_batch", dict(admission="nope"), ValueError),
+        ("montecarlo_rounds", dict(t_budget=1.0), NotImplementedError),
+        ("montecarlo_rounds", dict(cell_seq=np.zeros((2, 2, 16), int)),
+         NotImplementedError),
+        ("montecarlo_rounds", dict(shard=True), NotImplementedError),
+        ("montecarlo_rounds", dict(policy="age_noma_budget"),
+         NotImplementedError),
+        ("montecarlo_rounds", dict(policy="nope"), ValueError),
     ])
-    def test_out_of_scope_raises(self, kw, exc):
-        batch = make_batch(1, 2, 16, 4)
-        with pytest.raises(exc):
-            port_engine(4).schedule_batch(*batch, MODEL_BITS, **kw)
+    def test_out_of_scope_raises(self, method, kw, exc):
+        gains, n_samples, cpu_freq, ages = make_batch(1, 2, 16, 4)
+        eng = port_engine(4)
+        with pytest.raises(exc, match="ROADMAP queue|unknown"):
+            if method == "schedule_batch":
+                eng.schedule_batch(gains, n_samples, cpu_freq, ages,
+                                   MODEL_BITS, **kw)
+            else:
+                eng.montecarlo_rounds(np.stack([gains, gains]), n_samples,
+                                      cpu_freq, MODEL_BITS, **kw)
 
     def test_multicell_raises(self):
         with pytest.raises(NotImplementedError):
             E.WirelessEngine(NOMAConfig(), FLConfig(n_cells=3),
                              device="cpu")
+
+
+def assert_pairs_match_or_near_tie(out, ref, k, batch):
+    """Pair tables equal the reference's; a row that differs must be a
+    bf16 near-tie: both matchings' round times within the bf16 tier."""
+    same = ((out.pair_strong.numpy() == np.asarray(ref.pair_strong))
+            & (out.pair_weak.numpy() == np.asarray(ref.pair_weak))).all(1)
+    for b in np.flatnonzero(~same):
+        assert out.t_round[b].item() == pytest.approx(
+            float(ref.t_round[b]), rel=1e-2), f"row {b}: not a near-tie"
+    assert same.all(), (f"{(~same).sum()} of {len(same)} rows pair "
+                        f"differently (near-ties at the bf16 tier)")
+
+
+PAIRING_GRID = [(4, 24, 3), (2, 64, 5), (2, 256, 16)]
+
+
+class TestPairingPolicies:
+    @pytest.mark.parametrize("b,n,k", PAIRING_GRID)
+    @pytest.mark.parametrize("pairing", ["adjacent", "greedy_matching"])
+    def test_index_and_greedy_policies_match_jax(self, pairing, b, n, k):
+        batch = make_batch(n + k, b, n, k)
+        out = port_engine(k, pairing=pairing).schedule_batch(*batch,
+                                                             MODEL_BITS)
+        ref = jax_engine(k, pairing=pairing).schedule_batch(*batch,
+                                                            MODEL_BITS)
+        assert_matches_jax(out, ref)
+
+    @pytest.mark.parametrize("b,n,k", PAIRING_GRID + [(3, 16, 2)])
+    def test_hungarian_matches_jax_bf16_tables(self, b, n, k):
+        """K=2 (m=2 <= ENUM_MAX_PAIRS) takes the enumeration branch, the
+        rest the assignment + bottleneck 2-opt branch."""
+        batch = make_batch(n + k, b, n, k)
+        out = port_engine(k, pairing="hungarian").schedule_batch(
+            *batch, MODEL_BITS)
+        ref = jax_engine(k, "pallas_interpret",
+                         pairing="hungarian").schedule_batch(*batch,
+                                                             MODEL_BITS)
+        np.testing.assert_array_equal(out.selected.numpy(),
+                                      np.asarray(ref.selected))
+        np.testing.assert_allclose(out.t_round.numpy(),
+                                   np.asarray(ref.t_round), rtol=RTOL)
+        assert_pairs_match_or_near_tie(out, ref, k, batch)
+        # never slower than strong_weak (the guard compares in fp32)
+        sw = port_engine(k).schedule_batch(*batch, MODEL_BITS)
+        assert (out.t_round <= sw.t_round * (1 + 1e-2)).all()
+
+    @pytest.mark.parametrize("oma", [False, True])
+    def test_hungarian_oma_odd(self, oma):
+        """An odd slot count (the weakest candidate parks alone) under
+        both rate models."""
+        batch = make_batch(21, 3, 40, 11)
+        eng = port_engine(11, pairing="hungarian")
+        out = eng.schedule_batch(*batch, MODEL_BITS, oma=oma)
+        ref = jax_engine(11, "pallas_interpret",
+                         pairing="hungarian").schedule_batch(
+            *batch, MODEL_BITS, oma=oma)
+        np.testing.assert_array_equal(out.selected.numpy(),
+                                      np.asarray(ref.selected))
+        np.testing.assert_allclose(out.t_round.numpy(),
+                                   np.asarray(ref.t_round), rtol=RTOL)
+        assert_pairs_match_or_near_tie(out, ref, 11, batch)
+
+
+class TestJointSelection:
+    @pytest.mark.parametrize("n,k", [(8, 3), (24, 5)])
+    @pytest.mark.parametrize("pairing", ["strong_weak", "hungarian"])
+    def test_joint_matches_jax(self, pairing, n, k):
+        """N=8 takes the exhaustive enumeration, N=24 the swap search."""
+        batch = make_batch(n + k + 1, 4, n, k)
+        out = port_engine(k, pairing=pairing,
+                          selection="joint").schedule_batch(*batch,
+                                                            MODEL_BITS)
+        ref = jax_engine(k, REF_BACKEND[pairing], pairing=pairing,
+                         selection="joint").schedule_batch(*batch,
+                                                           MODEL_BITS)
+        np.testing.assert_array_equal(out.selected.numpy(),
+                                      np.asarray(ref.selected))
+        np.testing.assert_allclose(out.t_round.numpy(),
+                                   np.asarray(ref.t_round), rtol=RTOL)
+        greedy = port_engine(k, pairing=pairing).schedule_batch(*batch,
+                                                                MODEL_BITS)
+        assert (out.t_round <= greedy.t_round).all()     # never worse
+        assert (out.selected.sum(1) == min(2 * k, n)).all()
+
+
+def mc_inputs(r, s, n, k, seed=0):
+    rng = np.random.default_rng(seed)
+    ncfg = JNOMAConfig(n_subchannels=k)
+    dist = np.stack([jnoma.sample_distances(rng, n, ncfg) for _ in range(s)])
+    gains = np.stack([np.stack([jnoma.sample_gains(rng, dist[j], ncfg)
+                                for j in range(s)]) for _ in range(r)])
+    return (gains, rng.uniform(100, 1000, (s, n)),
+            rng.uniform(0.5e9, 2e9, (s, n)))
+
+
+MC_EXACT = ("n_selected", "max_age", "participation", "final_ages",
+            "aou_hist", "n_evicted")
+
+
+class TestMonteCarlo:
+    R, S, N, K = 4, 3, 24, 3
+
+    @pytest.mark.parametrize("policy", ["age_noma", "oma_age", "channel",
+                                        "round_robin"])
+    @pytest.mark.parametrize("pairing", ["strong_weak", "hungarian"])
+    def test_rounds_match_jax(self, pairing, policy):
+        inputs = mc_inputs(self.R, self.S, self.N, self.K)
+        out = port_engine(self.K, pairing=pairing).montecarlo_rounds(
+            *inputs, MODEL_BITS, policy=policy)
+        ref = jax_engine(self.K, REF_BACKEND[pairing],
+                         pairing=pairing).montecarlo_rounds(
+            *inputs, MODEL_BITS, policy=policy)
+        assert sorted(out) == sorted(ref)
+        for key in MC_EXACT:
+            np.testing.assert_array_equal(out[key].numpy(),
+                                          np.asarray(ref[key]), err_msg=key)
+        for key in ("t_round", "t_comp_bottleneck", "t_up_bottleneck"):
+            np.testing.assert_allclose(out[key].numpy(),
+                                       np.asarray(ref[key]), rtol=RTOL,
+                                       err_msg=key)
+
+    def test_per_round_inputs_and_joint(self):
+        """(R, S, N) per-round sample counts and cpu, joint selection."""
+        gains, n_samples, cpu_freq = mc_inputs(self.R, self.S, self.N,
+                                               self.K, seed=4)
+        rng = np.random.default_rng(5)
+        ns = n_samples * rng.uniform(0.5, 1.5, (self.R, 1, 1))
+        cf = cpu_freq * rng.uniform(0.5, 1.5, (self.R, 1, 1))
+        kw = dict(pairing="hungarian", selection="joint")
+        out = port_engine(self.K, **kw).montecarlo_rounds(gains, ns, cf,
+                                                          MODEL_BITS)
+        ref = jax_engine(self.K, "pallas_interpret",
+                         **kw).montecarlo_rounds(gains, ns, cf, MODEL_BITS)
+        for key in MC_EXACT:
+            np.testing.assert_array_equal(out[key].numpy(),
+                                          np.asarray(ref[key]), err_msg=key)
+        np.testing.assert_allclose(out["t_round"].numpy(),
+                                   np.asarray(ref["t_round"]), rtol=RTOL)
+
+    def test_random_policy_invariants_and_seed(self):
+        inputs = mc_inputs(6, self.S, self.N, self.K)
+        eng = port_engine(self.K)
+        a = eng.montecarlo_rounds(*inputs, MODEL_BITS, policy="random",
+                                  seed=3)
+        b = eng.montecarlo_rounds(*inputs, MODEL_BITS, policy="random",
+                                  seed=3)
+        c = eng.montecarlo_rounds(*inputs, MODEL_BITS, policy="random",
+                                  seed=4)
+        slots = 2 * self.K
+        assert (a["n_selected"] == slots).all()
+        assert a["participation"].sum().item() == 6 * self.S * slots
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+        assert not torch.equal(a["participation"], c["participation"])
+        # ages: 1 where selected in the last round, else grown by one
+        assert (a["final_ages"] >= 1).all()
+        assert ((a["final_ages"] == 1).sum(1) == slots).all()

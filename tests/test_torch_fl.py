@@ -4,6 +4,9 @@ The port's ``FLServer(device="cpu", params=<the reference's init>)`` and
 ``repro.fl.FLServer(engine="jax")`` run 3 rounds on the TINY config of
 tests/test_fl_system.py in fp32. Selections are identical every round;
 round times and losses match to rtol 1e-4; final parameters to atol 1e-5.
+The same holds under ``pairing="hungarian", selection="joint"``, with the
+reference on ``kernel_backend="pallas_interpret"`` (the planner's bf16
+table, as the port computes it).
 """
 import dataclasses
 
@@ -91,6 +94,38 @@ def test_final_parameters(runs):
     for name, p in port.model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), jflat[name],
                                    atol=1e-5, rtol=0, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def hungarian_joint_runs():
+    kw = dict(pairing="hungarian", selection="joint")
+    ref = JFLServer(
+        dataclasses.replace(jget_config("smollm_135m").reduced(), **TINY_KW),
+        JFLConfig(**FL_KW, kernel_backend="pallas_interpret"),
+        JNOMAConfig(n_subchannels=2), JTaskConfig(**TASK_KW),
+        engine="jax", eval_every=1, **kw)
+    port = FLServer(
+        dataclasses.replace(get_config("smollm_135m").reduced(), **TINY_KW),
+        FLConfig(**FL_KW), NOMAConfig(n_subchannels=2),
+        TaskConfig(**TASK_KW), eval_every=1, device="cpu",
+        params=jax.tree.map(np.asarray, ref.params), **kw)
+    ref_masks, port_masks = recording(ref), recording(port)
+    return (ref.run(ROUNDS), ref_masks), (port.run(ROUNDS), port_masks)
+
+
+def test_hungarian_joint_round(hungarian_joint_runs):
+    """Selections identical every round; round times and losses to rtol
+    1e-4; the engine path reports no joint swaps (the reference's engine
+    has no ``joint_swaps_accepted`` leaf)."""
+    (ref_h, ref_masks), (port_h, port_masks) = hungarian_joint_runs
+    assert len(port_masks) == len(ref_masks) == ROUNDS
+    for r, (a, b) in enumerate(zip(port_masks, ref_masks)):
+        np.testing.assert_array_equal(a, b, err_msg=f"round {r}")
+    assert port_h.n_selected == ref_h.n_selected == [4] * ROUNDS
+    np.testing.assert_allclose(port_h.round_time, ref_h.round_time,
+                               rtol=1e-4)
+    np.testing.assert_allclose(port_h.loss, ref_h.loss, rtol=1e-4)
+    assert port_h.joint_swaps == ref_h.joint_swaps == [0] * ROUNDS
 
 
 def test_model_bits_count_every_parameter(runs):
