@@ -2,15 +2,16 @@
 """Smoke run of the PyTorch + CUDA port (src/repro_torch) on one GPU.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --profile  # + a timed and a profiled FL round
+    python3 chip_smoke.py --profile  # + a timed and a profiled FL round,
+                                     # profiled prefills and decode steps
 
 Phases, each fatal on failure:
   1. the card's name and power limit; build the CUDA kernels from
      src/repro_torch/csrc (timed as set-up); launch the probe kernel;
-  2. every kernel (probe, pairscore, fedagg, planner) against its plain
-     PyTorch version on the card, with its time (CUDA events, median), its
-     plain version's time, a library yardstick where one PyTorch call
-     computes the same function, and its bound on the H100;
+  2. every kernel (probe, pairscore, fedagg, planner, swa, wkv6) against
+     its plain PyTorch version on the card, with its time (CUDA events,
+     median), its plain version's time, a library yardstick where one
+     PyTorch call computes the same function, and its bound on the H100;
   3. the wireless engine at Monte-Carlo scale (B=64, N=10,000, K=128),
      checked for its invariants and against the same engine on the CPU;
   4. the pairing policies and joint selection (B=64, N=10,000, K=16):
@@ -22,12 +23,25 @@ Phases, each fatal on failure:
   7. the slice-1 main path: ``FLServer`` at the full width of smollm-135M
      in bf16, 50 clients, 10 slots, 3 rounds each evaluated;
   8. the same FL round under ``pairing="hungarian", selection="joint"``,
-     3 rounds. Phases 7 and 8 each set every kernel's launch count to 0
-     just before and read it just after.
+     3 rounds;
+  9. the serving path of hymba_1_5b at full width in bf16: ``run_serve``
+     with B=2, a 4096-token prompt (longer than the 2048 window) and 16
+     greedy decode steps; the last-token logits of the prefill against the
+     same prefill with the plain attention on the card, in bf16 and with
+     the same weights in fp32;
+ 10. rwkv6_7b at full width in bf16: ``make_prefill_step`` at B=1,
+     T=4096; ``run_serve`` with a 64-token prompt and 16 generated
+     tokens; at T=256 the prefill's per-layer states and last logits
+     against 256 decode steps from an empty cache, reported in bf16 and
+     held in fp32.
+Phases 7, 8, 9 (run_serve) and 10 (the T=4096 prefill) each set every
+kernel's launch count to 0 just before and read it just after.
 
 With ``--profile`` it then times the stages of one more FL round and
-traces another with ``torch.profiler``. It prints a ``{"kernels": [...]}``
-line (launches from phase 8, which runs all four kernels), the
+traces another with ``torch.profiler``, and traces one prefill and one
+decode step in each of phases 9 and 10. It prints a ``{"kernels": [...]}``
+line (launches of the four FL kernels from phase 8, of swa from phase 9,
+of wkv6 from phase 10), the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Without a CUDA card, or without the
@@ -51,6 +65,7 @@ OUT = ROOT / "chiprun_out"
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_BF16_S = 989e12     # dense tensor-core rate
 
 PAIR_TOL = dict(rtol=1e-6, atol=1e-9)
 # both sides accumulate in fp32 from the same inputs, so bf16 takes a
@@ -77,8 +92,9 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, ops / PEAK_FP32_S
+def bound(bytes_moved: float, ops: float,
+          peak_ops_s: float = PEAK_FP32_S) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, ops / peak_ops_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -269,6 +285,146 @@ def phase_planner(torch, dev, kinfo):
         tolerance="table 1 bf16 ulp (rtol 2^-7); row_min, t_sw rtol 1e-6",
         shape=fl["shape"], at_montecarlo_shape=timings["montecarlo"],
         at_k128_shape=timings["k128"], errors=errs)
+
+
+def bf16_ulp(x) -> float:
+    """One bf16 ulp at max|x| (the largest spacing among x's values)."""
+    m = float(x.float().abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def swa_pairs(s: int, w: int) -> int:
+    """(query, key) pairs of a causal band of width w over s positions."""
+    return sum(min(i + 1, w) for i in range(s))
+
+
+def phase_swa(torch, dev, kinfo):
+    """swa against its plain version: bf16 output from fp32 accumulation
+    on both sides, so max abs err <= one bf16 ulp of max|out|."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import swa as SW
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def qkv(b, s, h, kh, hd, dtype=torch.bfloat16):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd))]
+
+    hymba = (2, 4096, 25, 5, 64, 2048, 0.0)
+    cases = {"hymba prefill": hymba,
+             "S < W": (1, 700, 25, 5, 64, 2048, 0.0),
+             "S, W off the block": (2, 1000, 6, 3, 64, 300, 0.0),
+             "W = 1": (1, 129, 4, 2, 64, 1, 0.0),
+             "g = 1": (1, 500, 4, 4, 64, 100, 0.0),
+             "softcap 5": (1, 600, 8, 2, 64, 200, 5.0),
+             "hd 16 (reduced)": (2, 300, 4, 1, 16, 256, 0.0)}
+    errs = {}
+    for name, (b, s, h, kh, hd, w, cap) in cases.items():
+        q, k, v = qkv(b, s, h, kh, hd)
+        if cap:
+            q = q * 8.0                       # scores well past the cap
+        out = SW.swa(q, k, v, window=w, softcap=cap)
+        torch.cuda.synchronize()
+        ref = SW.swa_plain(q, k, v, window=w, softcap=cap)
+        err, tol = max_err(torch, [out], [ref]), bf16_ulp(ref)
+        if not err <= tol:
+            raise AssertionError(f"swa {name}: max abs err {err} > one bf16 "
+                                 f"ulp {tol}")
+        errs[name] = dict(max_abs_err=err, tolerance=tol)
+        del q, k, v, out, ref
+    log(f"swa agrees with its plain version (1 bf16 ulp of max|out|): {errs}")
+    b, s, h, kh, hd, w, _ = hymba
+    q, k, v = qkv(b, s, h, kh, hd)
+    # the library yardstick: SDPA with the band as a boolean mask, (B,H,S,hd)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    i = torch.arange(s, device=dev)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                              enable_gqa=True)
+
+    lib_err = max_err(torch, [sdpa().transpose(1, 2)],
+                      [SW.swa_plain(q, k, v, window=w)])
+    pairs = swa_pairs(s, w) * b * h
+    b_ms, b_by = bound(2 * b * s * (2 * h + 2 * kh) * hd, 4 * hd * pairs,
+                       PEAK_BF16_S)
+    kinfo["swa"] = dict(
+        max_abs_err=errs["hymba prefill"]["max_abs_err"],
+        ms=time_ms(torch, lambda: SW.swa(q, k, v, window=w), reps=5, runs=5),
+        plain_ms=time_ms(torch, lambda: SW.swa_plain(q, k, v, window=w),
+                         reps=2, runs=3),
+        library_ms=time_ms(torch, sdpa, reps=5, runs=5),
+        library="scaled_dot_product_attention(attn_mask=band, "
+                "enable_gqa=True)",
+        library_max_abs_err=lib_err,
+        bound_ms=b_ms, bound_by=b_by, bound_peak="989 TFLOP/s bf16, "
+                                                 "3.35 TB/s",
+        tolerance="1 bf16 ulp of max|out|", shape=list(hymba[:6]),
+        checks=errs)
+    log(f"swa {hymba[:6]}: {kinfo['swa']}")
+
+
+def wkv6_inputs(torch, dev, b, h, t, c, seed, *, clip=False, s0=True,
+                dtype=None):
+    """r, k, v (bf16 unless ``dtype``), w_log, u and s0 (None without
+    ``s0``); ``clip`` puts every decay at the +4 clip."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = dtype or torch.bfloat16
+    r, k, v = (torch.randn((b, h, t, c), generator=gen, device=dev) * 0.5
+               for _ in range(3))
+    wt = (torch.full((b, h, t, c), 4.0, device=dev) if clip
+          else torch.randn((b, h, t, c), generator=gen, device=dev) - 1.0)
+    w_log = -torch.exp(torch.clamp(wt, -8.0, 4.0))
+    u = torch.randn((h, c), generator=gen, device=dev) * 0.5
+    st = (torch.randn((b, h, c, c), generator=gen, device=dev) * 0.1
+          if s0 else None)
+    return r.to(dtype), k.to(dtype), v.to(dtype), w_log, u, st
+
+
+def phase_wkv6(torch, dev, kinfo):
+    """wkv6 against its plain version, out and s_T, fp32: max abs err <=
+    1e-4 * max|out| (and the same for s_T)."""
+    from repro_torch.kernels import wkv6 as WK
+    cases = {"rwkv6 prefill": ((1, 64, 4096, 64), 128, {}),
+             "rwkv6 prefill, s0, w at the +4 clip":
+                 ((1, 64, 4096, 64), 128, dict(clip=True)),
+             "short T, s0": ((2, 64, 77, 64), 128, {}),
+             "short T, zero s0": ((2, 64, 77, 64), 128, dict(s0=False)),
+             "T off the chunk, chunk 64": ((1, 8, 1000, 64), 64, {}),
+             "C 16 (reduced), fp32": ((2, 8, 300, 16), 128,
+                                      dict(dtype=torch.float32))}
+    errs = {}
+    for name, ((b, h, t, c), chunk, kw) in cases.items():
+        args = wkv6_inputs(torch, dev, b, h, t, c, seed=t + c, **kw)
+        out, s_t = WK.wkv6(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        ref, ref_s = WK.wkv6_plain(*args, chunk=chunk)
+        e_o, e_s = max_err(torch, [out], [ref]), max_err(torch, [s_t], [ref_s])
+        t_o = 1e-4 * float(ref.abs().max())
+        t_s = 1e-4 * float(ref_s.abs().max())
+        if not (e_o <= t_o and e_s <= t_s):
+            raise AssertionError(f"wkv6 {name}: out err {e_o} (tol {t_o}), "
+                                 f"s_T err {e_s} (tol {t_s})")
+        errs[name] = dict(out_err=e_o, out_tol=t_o, s_T_err=e_s, s_T_tol=t_s)
+        del args, out, s_t, ref, ref_s
+    log(f"wkv6 agrees with its plain version (1e-4 of max|out|, max|s_T|): "
+        f"{errs}")
+    b, h, t, c = 1, 64, 4096, 64
+    args = wkv6_inputs(torch, dev, b, h, t, c, seed=5, s0=False)
+    n = b * h * t * c
+    b_ms, b_by = bound(3 * n * 2 + 2 * n * 4 + h * c * 4 + 2 * b * h * c * c
+                       * 4, 5 * c * c * t * h * b)
+    kinfo["wkv6"] = dict(
+        max_abs_err=errs["rwkv6 prefill"]["out_err"],
+        s_T_max_abs_err=errs["rwkv6 prefill"]["s_T_err"],
+        ms=time_ms(torch, lambda: WK.wkv6(*args, chunk=128), reps=5, runs=5),
+        plain_ms=time_ms(torch, lambda: WK.wkv6_plain(*args, chunk=128),
+                         reps=2, runs=3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        bound_peak="67 TFLOP/s fp32, 3.35 TB/s",
+        tolerance="1e-4 of max|out| (and of max|s_T|)",
+        shape=[b, h, t, c], chunk=128, checks=errs)
+    log(f"wkv6 {(b, h, t, c)} chunk 128: {kinfo['wkv6']}")
 
 
 # ---------------------------------------------------------------------------
@@ -623,8 +779,6 @@ def phase_profile(torch, srv):
     ``torch.profiler`` for the kernels' device time and the device's busy
     share of the round."""
     import repro_torch.fl.server as server_mod
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     spans: dict = {}
 
     def timed(name, fn):
@@ -652,25 +806,247 @@ def phase_profile(torch, srv):
     spans["evaluate"] = time.perf_counter() - t0
     for obj, attr, fn in saved:
         setattr(obj, attr, fn)
+    RESULT["profile"] = dict(spans_s=spans,
+                             round=profile_call(torch, srv.run_round))
+    log(f"profile: {RESULT['profile']}")
+
+
+# ---------------------------------------------------------------------------
+# phases 9-10: the serving path of the hybrid and ssm families
+# ---------------------------------------------------------------------------
+
+# Tolerance of the model-level checks, relative to the largest magnitude
+# of the compared tensor. A wrong band, softmax, decay or state moves the
+# result by the order of that magnitude. Two paths that round the last
+# bf16 bit differently drift apart through 32 layers of random weights
+# (rwkv6 prefill vs decode in bf16: 1.4e-6 of max at layer 0, 0.26 at
+# layer 31), so the checks are held with the same weights in fp32, where
+# the same drift stays near 1e-4, and the bf16 errors are reported.
+FP32_REL_TOL = 1e-3
+
+
+def rel_err(torch, a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max())
+
+
+def profile_call(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall time, the device's
+    kernel time and busy share, and the kernels that took most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        srv.run_round()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
-    RESULT["profile"] = dict(
-        spans_s=spans, profiled_round_wall_ms=wall_ms,
-        device_kernel_ms=dev_ms,
-        device_busy_share=dev_ms / wall_ms if wall_ms else None,
-        kernel_launches=sum(e.count for e in kern),
-        top_kernels=[dict(name=e.key[:90], count=e.count,
-                          device_ms=e.self_device_time_total / 1e3)
-                     for e in top])
-    log(f"profile: {RESULT['profile']}")
+    return dict(wall_ms=wall_ms, device_kernel_ms=dev_ms,
+                device_busy_share=dev_ms / wall_ms if wall_ms else None,
+                kernel_launches=sum(e.count for e in kern),
+                top_kernels=[dict(name=e.key[:90], count=e.count,
+                                  device_ms=e.self_device_time_total / 1e3)
+                             for e in top])
+
+
+def release(torch):
+    """Return the memory of what the caller has deleted to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_hymba(torch, dev, profile=False):
+    """hymba_1_5b at full width in bf16 through ``run_serve`` (B=2, prompt
+    4096, 16 tokens) with the launch counts set to 0 just before and read
+    just after; then the prefill's last logits against the same prefill
+    with the plain attention (``swa_plain``) on the card, in bf16 and
+    with the weights cast to fp32."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, swa as SW
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.models import zoo
+    cfg = get_config("hymba_1_5b")
+    b, s, gen = 2, 4096, 16
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = zoo.init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    kernels.reset_launch_counts()
+    res = run_serve(cfg, batch=b, prompt_len=s, gen=gen, seed=0, device=dev,
+                    model=model)
+    counts = kernels.launch_counts()
+    if counts["swa"] != cfg.n_layers or counts["wkv6"] != 0:
+        raise AssertionError(f"hymba serve launches: {counts}")
+    toks = res["tokens"]
+    if toks.shape != (b, gen) or not ((toks >= 0)
+                                      & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"hymba generated {toks}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)), device=dev)
+    prefill = zoo.make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = prefill(model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    del cache
+    if profile:
+        RESULT["hymba_1_5b_profile"] = dict(
+            prefill=profile_call(torch, lambda: prefill(
+                model, {"tokens": prompt})),
+            decode_step=profile_call(torch, lambda: zoo.make_serve_step(cfg)(
+                model, zoo.init_cache(cfg, b, s + gen, device=dev),
+                prompt[:, 0], 0)))
+        log(f"hymba profile: {RESULT['hymba_1_5b_profile']}")
+    if not (bool(torch.isfinite(last).all())
+            and last.shape == (b, cfg.padded_vocab)):
+        raise AssertionError("hymba prefill logits not finite or misshaped")
+    nv = cfg.vocab_size                 # the padded columns hold -1e9
+
+    def plain_prefill():
+        saved = ops.swa
+        ops.swa = lambda q, k, v, *, window, softcap=0.0: SW.swa_plain(
+            q, k, v, window=window, softcap=softcap)
+        try:
+            return prefill(model, {"tokens": prompt})[0]
+        finally:
+            ops.swa = saved
+
+    errs = {"bf16": rel_err(torch, last[:, :nv], plain_prefill()[:, :nv])}
+    model.float()                       # the same weights in fp32
+    errs["fp32"] = rel_err(torch,
+                           prefill(model, {"tokens": prompt})[0][:, :nv],
+                           plain_prefill()[:, :nv])
+    if not errs["fp32"] <= FP32_REL_TOL:
+        raise AssertionError(f"hymba fp32 last logits, kernel vs plain "
+                             f"attention: relative max err {errs['fp32']} > "
+                             f"{FP32_REL_TOL}")
+    RESULT["hymba_1_5b"] = dict(
+        n_params=n_params, dtype=cfg.dtype, batch=b, prompt=s, gen=gen,
+        window=cfg.long_context_window, setup_s=setup_s,
+        serve_prefill_ms=res["prefill_s"] * 1e3, prefill_ms=prefill_ms,
+        decode_ms=res["decode_s"] * 1e3,
+        decode_tokens_per_s=res["decode_tokens_per_s"],
+        peak_mem_gib=peak, launches=counts,
+        logits_rel_err_vs_plain_attention=errs,
+        logits_rel_tolerance=dict(fp32=FP32_REL_TOL,
+                                  bf16="reported, not held"),
+        tokens=toks.tolist())
+    log(f"hymba_1_5b serve (B={b}, prompt {s}, {gen} tokens): "
+        f"{RESULT['hymba_1_5b']}")
+    del model, last
+    release(torch)
+    return counts
+
+
+def phase_rwkv(torch, dev, profile=False):
+    """rwkv6_7b at full width in bf16: ``make_prefill_step`` at B=1, T=4096
+    with the launch counts set to 0 just before and read just after;
+    ``run_serve``; then at T=256 the prefill's states and last logits
+    against 256 decode steps from an empty cache (the plain one-token
+    recurrence, so the kernel's s_T is held against an independent path),
+    in bf16 (reported) and with the weights cast to fp32 (held)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.models import zoo
+    cfg = get_config("rwkv6_7b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = zoo.init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 4096)), device=dev)
+    prefill = zoo.make_prefill_step(cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    last, cache = prefill(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    if counts["wkv6"] != cfg.n_layers or counts["swa"] != 0:
+        raise AssertionError(f"rwkv6 prefill launches: {counts}")
+    if not bool(torch.isfinite(last).all()) or not all(
+            bool(torch.isfinite(v).all()) for v in cache.values()):
+        raise AssertionError("rwkv6 prefill: non-finite logits or states")
+    del last, cache
+    t0 = time.perf_counter()
+    last, cache = prefill(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del last, cache
+    if profile:
+        RESULT["rwkv6_7b_profile"] = dict(
+            prefill=profile_call(torch, lambda: prefill(
+                model, {"tokens": toks})),
+            decode_step=profile_call(torch, lambda: zoo.make_serve_step(cfg)(
+                model, zoo.init_cache(cfg, 1, 1, device=dev), toks[:, 0],
+                0)))
+        log(f"rwkv6 profile: {RESULT['rwkv6_7b_profile']}")
+
+    res = run_serve(cfg, batch=1, prompt_len=64, gen=16, seed=0, device=dev,
+                    model=model)
+    if res["tokens"].shape != (1, 16):
+        raise AssertionError(f"rwkv6 generated {res['tokens']}")
+
+    t = 256
+
+    def prefill_vs_decode(dtype):
+        """Relative max errors of the prefill's states and last logits
+        against t decode steps from an empty cache."""
+        c = dataclasses.replace(cfg, dtype=dtype)
+        last, pcache = zoo.make_prefill_step(c)(model,
+                                                {"tokens": toks[:, :t]})
+        serve = zoo.make_serve_step(c)
+        cache = zoo.init_cache(c, 1, t, device=dev)
+        for i in range(t):
+            _, logits, cache = serve(model, cache, toks[:, i], i)
+        out = {name: rel_err(torch, pcache[name], cache[name])
+               for name in ("wkv", "tm_shift", "cm_shift")}
+        out["wkv_per_layer"] = [rel_err(torch, a, b) for a, b in
+                                zip(pcache["wkv"], cache["wkv"])]
+        out["last_logits"] = rel_err(torch, last, logits)
+        return out
+
+    errs = {"bf16": prefill_vs_decode("bfloat16")}
+    model.float()                       # the same weights in fp32
+    errs["fp32"] = prefill_vs_decode("float32")
+    bad = {k: v for k, v in errs["fp32"].items()
+           if k != "wkv_per_layer" and not v <= FP32_REL_TOL}
+    if bad:
+        raise AssertionError(f"rwkv6 fp32 prefill vs {t} decode steps, "
+                             f"relative max err above {FP32_REL_TOL}: {bad}")
+    RESULT["rwkv6_7b"] = dict(
+        n_params=n_params, dtype=cfg.dtype, setup_s=setup_s,
+        prefill_T=4096, prefill_first_ms=first_ms, prefill_ms=prefill_ms,
+        peak_mem_gib=peak, launches=counts,
+        prefill_vs_decode_T=t, prefill_vs_decode_rel_err=errs,
+        rel_tolerance=dict(fp32=FP32_REL_TOL, bf16="reported, not held"),
+        serve_prompt=64, serve_gen=16,
+        serve_prompt_ms=res["prefill_s"] * 1e3,
+        serve_decode_ms=res["decode_s"] * 1e3,
+        decode_tokens_per_s=res["decode_tokens_per_s"],
+        tokens=res["tokens"].tolist())
+    log(f"rwkv6_7b (B=1, T=4096 prefill; serve 64 + 16): "
+        f"{RESULT['rwkv6_7b']}")
+    del model
+    release(torch)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -710,6 +1086,8 @@ def main() -> int:
     phase_pairscore(torch, dev, kinfo)
     phase_fedagg(torch, dev, kinfo)
     phase_planner(torch, dev, kinfo)
+    phase_swa(torch, dev, kinfo)
+    phase_wkv6(torch, dev, kinfo)
     torch.cuda.empty_cache()
     phase_engine(torch, dev)
     phase_policies(torch, dev)
@@ -721,25 +1099,36 @@ def main() -> int:
     del srv
     gc.collect()            # the timed run_round closure keeps a cycle
     torch.cuda.empty_cache()
-    srv, counts = phase_main_path(torch, dev, "fl_hungarian_joint",
-                                  pairing="hungarian", selection="joint")
+    srv, fl_counts = phase_main_path(torch, dev, "fl_hungarian_joint",
+                                     pairing="hungarian", selection="joint")
     del srv
+    release(torch)
+    profile = "--profile" in sys.argv[1:]
+    hymba_counts = phase_hymba(torch, dev, profile)
+    rwkv_counts = phase_rwkv(torch, dev, profile)
 
-    sources = {"probe_kernel": ("src/repro_torch/csrc/probe.cu",
-                                "src/repro/kernels/backend.py:59"),
-               "pairscore": ("src/repro_torch/csrc/pairscore.cu",
-                             "src/repro/kernels/pairscore.py:75"),
-               "fedagg": ("src/repro_torch/csrc/fedagg.cu",
-                          "src/repro/kernels/fedagg.py:24"),
-               "planner": ("src/repro_torch/csrc/planner.cu",
-                           "src/repro/kernels/planner.py:47")}
+    fl_path = f"FLServer smollm-135M, hungarian + joint, {FL_ROUNDS} rounds"
+    paths = {
+        "probe_kernel": ("src/repro_torch/csrc/probe.cu",
+                         "src/repro/kernels/backend.py:59", fl_counts,
+                         fl_path),
+        "pairscore": ("src/repro_torch/csrc/pairscore.cu",
+                      "src/repro/kernels/pairscore.py:75", fl_counts,
+                      fl_path),
+        "fedagg": ("src/repro_torch/csrc/fedagg.cu",
+                   "src/repro/kernels/fedagg.py:24", fl_counts, fl_path),
+        "planner": ("src/repro_torch/csrc/planner.cu",
+                    "src/repro/kernels/planner.py:47", fl_counts, fl_path),
+        "swa": ("src/repro_torch/csrc/swa.cu",
+                "src/repro/kernels/swa.py:27", hymba_counts,
+                "run_serve hymba_1_5b bf16, B=2, prompt 4096, 16 tokens"),
+        "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+                 "src/repro/kernels/wkv6.py:36", rwkv_counts,
+                 "make_prefill_step rwkv6_7b bf16, B=1, T=4096")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name],
-         "launches_path": "FLServer smollm-135M, hungarian + joint, "
-                          f"{FL_ROUNDS} rounds",
-         **kinfo[name]}
-        for name, (src, rep) in sources.items()]}
+         "launches": counts[name], "launches_path": path, **kinfo[name]}
+        for name, (src, rep, counts, path) in paths.items()]}
     RESULT.update(card=smi, kernels=line["kernels"])
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(

@@ -28,7 +28,7 @@ from typing import Tuple
 class ModelConfig:
     """Transformer-family architecture description.
 
-    ``family`` selects the assembly (the port builds ``dense`` only):
+    ``family`` selects the assembly (the port builds dense, hybrid, ssm):
       dense | moe | ssm | hybrid | encdec | vlm
     """
 
@@ -318,7 +318,7 @@ class FLConfig:
 # Registry (the architectures ported so far)
 # ---------------------------------------------------------------------------
 
-ARCH_IDS = ["smollm_135m"]
+ARCH_IDS = ["smollm_135m", "hymba_1_5b", "rwkv6_7b"]
 
 
 def canon(arch: str) -> str:

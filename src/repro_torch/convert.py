@@ -5,6 +5,12 @@ The input is the reference's parameter tree as numpy arrays — what
 ``"blocks"`` subtree stacks every layer on a leading axis. Nothing here
 imports jax: bf16 leaves (numpy's ``bfloat16`` extension dtype) are read
 through their uint16 bits.
+
+The port's module names mirror the reference's tree, so one flattening
+serves every ported family: the dense tree (``attn``, ``mlp``, ``ln1``,
+``ln2``), the hybrid tree (adds ``ssm``, ``ln_attn_o``, ``ln_ssm_o``) and
+the ssm (RWKV6) tree (``tm``, ``cm``, ``ln1``, ``ln2``). Loading the result
+with ``load_state_dict`` (strict) checks every name and shape.
 """
 from __future__ import annotations
 

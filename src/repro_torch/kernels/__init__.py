@@ -8,11 +8,15 @@ from repro_torch.kernels import backend as _backend
 from repro_torch.kernels import fedagg as _fedagg
 from repro_torch.kernels import pairscore as _pairscore
 from repro_torch.kernels import planner as _planner
+from repro_torch.kernels import swa as _swa
+from repro_torch.kernels import wkv6 as _wkv6
 
 WRAPPERS = {"probe_kernel": _backend.probe_kernel,
             "pairscore": _pairscore.pairscore,
             "fedagg": _fedagg.fedagg,
-            "planner": _planner.planner_tables}
+            "planner": _planner.planner_tables,
+            "swa": _swa.swa,
+            "wkv6": _wkv6.wkv6}
 
 
 def launch_counts() -> dict:

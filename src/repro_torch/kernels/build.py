@@ -25,6 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_STEM = "librepro_torch_kernels"
@@ -47,6 +49,10 @@ SIGNATURES = {
     "repro_fedagg": (_P, _I, _I, _L, _P, _P, _I, _L, _I, _P),
     "repro_planner": (_P, _P, _P, _P, _P, _P, _P, _L, _I,
                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P),
+    "repro_swa": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                  _P),
+    "repro_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                   _I, _P),
 }
 
 
@@ -136,6 +142,17 @@ def load() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """The kernels are forward-only: a call that would need a gradient
+    raises instead of quietly taking the plain version."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel has no backward; training the hybrid "
+            f"and ssm families on the card needs backward kernels (ROADMAP, "
+            f"'Training the hybrid and ssm families on the card'). Call it "
+            f"under torch.no_grad().")
 
 
 def check(code: int, what: str) -> None:

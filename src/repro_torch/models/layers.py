@@ -1,17 +1,21 @@
-"""Core transformer layers of the dense family: RMSNorm, RoPE, GQA
-attention, gated MLP.
+"""Core transformer layers: RMSNorm, RoPE, GQA attention (direct, sliding
+window, KV-cache decode), gated MLP.
 
 Counterpart of ``src/repro/models/layers.py`` (``rms_norm``,
 ``rope_angles``/``apply_rope``, ``qkv_proj``/``out_proj``,
-``_direct_attention``, the GLU MLP). Weights keep the reference's
-``(in, out)`` layout and are applied as ``x @ W``, so converting the
-reference's parameters is a plain copy (convert.py).
+``_direct_attention``, ``flash_attention``, ``decode_attention``,
+``init_kv_cache``, ``cache_write``, the GLU MLP). Weights keep the
+reference's ``(in, out)`` layout and are applied as ``x @ W``, so
+converting the reference's parameters is a plain copy (convert.py).
 
-Attention is the reference's direct path (``_direct_attention``): q scaled
-in fp32, fp32 scores and softmax, output cast back to q's dtype. The
-reference takes that path whenever ``sq * skv <= 65536`` (the FL task's
-31-token sequences) and a chunked online softmax above; the port uses the
+Attention without a window is the reference's direct path
+(``_direct_attention``): q scaled in fp32, fp32 scores and softmax, output
+cast back to q's dtype. The reference takes that path whenever
+``sq * skv <= 65536`` and a chunked online softmax above; the port uses the
 direct path at every length, the same function summed in another order.
+With a window (the hybrid family's prefill), ``flash_attention`` calls
+``ops.swa``: the CUDA sliding-window kernel for CUDA tensors, the same
+direct math with the band for CPU tensors.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.swa import attention_plain
 
 
 def rms_norm(x, weight, eps: float = 1e-5):
@@ -62,26 +68,63 @@ def apply_rope(x, cos, sin, rope_frac: float):
 def direct_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
                      window: int = 0):
     """q (B,Sq,H,hd), k/v (B,Skv,KH,hd) -> (B,Sq,H,hd) in q's dtype."""
-    b, sq, h, hd = q.shape
-    skv = k.shape[1]
+    return attention_plain(q, k, v, causal=causal, window=window,
+                           softcap=cfg.logit_softcap)
+
+
+def flash_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
+                    window: int = 0):
+    """Full-sequence attention; ``window`` > 0 (causal) keeps keys j with
+    i - window < j <= i and goes through ``ops.swa``."""
+    if window > 0 and causal:
+        return ops.swa(q, k, v, window=window, softcap=cfg.logit_softcap)
+    return direct_attention(q, k, v, cfg, causal=causal, window=window)
+
+
+def decode_attention(q, k_cache, v_cache, valid_mask, cfg: ModelConfig):
+    """Single-token attention against a (ring or linear) KV cache.
+    q (B,1,H,hd); k_cache/v_cache (B,S,KH,hd); valid_mask (B,S) bool.
+    Returns (B,1,H,hd) in q's dtype."""
+    b, _, h, hd = q.shape
     kh = cfg.n_kv_heads
     g = h // kh
     scale = 1.0 / math.sqrt(hd)
-    qf = q.reshape(b, sq, kh, g, hd).float() * scale
-    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float())
+    qf = q.reshape(b, 1, kh, g, hd).float() * scale
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k_cache.float())
     if cfg.logit_softcap > 0.0:
         s = cfg.logit_softcap * torch.tanh(s / cfg.logit_softcap)
-    qp = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-    kp = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (kp <= qp)
-    if window > 0:
-        mask = mask & (kp > qp - window)
-    s = s.masked_fill(~mask, float("-inf"))
+    s = s.masked_fill(~valid_mask[:, None, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v_cache.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+                  dtype, device):
+    """Stacked-over-layers cache; positions start at -1 (invalid)."""
+    kh, hd = cfg.n_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((n_layers, batch, max_len, kh, hd), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((n_layers, batch, max_len, kh, hd), dtype=dtype,
+                         device=device),
+        "pos": torch.full((n_layers, batch, max_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def cache_write(cache_k, cache_v, cache_pos, k_new, v_new, pos: int,
+                ring: bool):
+    """Write one token (B,1,KH,hd) at absolute position ``pos``; ring=True
+    wraps modulo the cache length, else the slot is clamped to the last.
+    Writes in place (the reference returns new arrays) and returns the
+    three tensors."""
+    max_len = cache_k.shape[1]
+    slot = pos % max_len if ring else min(pos, max_len - 1)
+    cache_k[:, slot] = k_new[:, 0]
+    cache_v[:, slot] = v_new[:, 0]
+    cache_pos[:, slot] = pos
+    return cache_k, cache_v, cache_pos
 
 
 def _weight(*shape, dtype, device):
@@ -116,14 +159,19 @@ class Attention(nn.Module):
                 k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
                 v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim))
 
-    def forward(self, x, cos, sin):
+    def out_proj(self, attn_out):
+        b, s = attn_out.shape[:2]
+        return attn_out.reshape(b, s, -1) @ self.wo
+
+    def forward(self, x, cos, sin, *, window: int = 0):
+        """Full-sequence attention (``_attn_seq`` of the reference).
+        Returns (out (B,S,D), (k, v) post-RoPE)."""
         cfg = self.cfg
         q, k, v = self.qkv_proj(x)
         q = apply_rope(q, cos, sin, cfg.rope_frac)
         k = apply_rope(k, cos, sin, cfg.rope_frac)
-        out = direct_attention(q, k, v, cfg, causal=True)
-        b, s = out.shape[:2]
-        return out.reshape(b, s, -1) @ self.wo
+        out = flash_attention(q, k, v, cfg, causal=True, window=window)
+        return self.out_proj(out), (k, v)
 
 
 class MLP(nn.Module):

@@ -1,11 +1,21 @@
-"""Decoder-LM assembly of the dense family.
+"""Decoder-LM assembly of the dense, hybrid and ssm (RWKV6) families.
 
 Counterpart of ``src/repro/models/transformer.py``: block init
-(``_init_block``/``init_decoder``), ``block_seq``, ``embed_inputs``, the
-tied ``unembed`` with the padded-vocab mask, and ``decoder_forward``. The
-reference stacks the layers on a leading axis and scans over them; here
-each layer is its own module in a ``ModuleList`` (convert.py unstacks).
-Norm weights are fp32, as in the reference, whatever the model dtype.
+(``_init_block``/``init_decoder``), ``block_seq``, ``block_decode``,
+``embed_inputs``, ``unembed`` with the padded-vocab mask,
+``_init_seq_states``, ``decoder_forward`` (with ``collect_cache`` and
+``last_only``), ``decoder_decode`` and ``init_decode_cache``. The reference
+stacks the layers on a leading axis and scans over them; here each layer is
+its own module in a ``ModuleList`` (convert.py unstacks). Caches keep the
+reference's stacked layout (a leading layer axis); decode writes them in
+place and returns the same dict. Norm weights are fp32, as in the
+reference, whatever the model dtype.
+
+The hybrid family's full-sequence attention uses ``cfg.long_context_window``
+(the reference's ``decoder_forward``), so its prefill goes through the
+sliding-window kernel. Its decode applies the window only with a ring cache
+(``ring=True``), as the reference does: on a linear cache every cached
+position is attended.
 """
 from __future__ import annotations
 
@@ -14,42 +24,151 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as RWKV
+from repro_torch.models import ssm as SSM
+
+FAMILIES = ("dense", "hybrid", "ssm")
+
+
+def _rope_dim(cfg: ModelConfig) -> int:
+    rot = int(cfg.head_dim * cfg.rope_frac)
+    return rot - rot % 2
 
 
 class Block(nn.Module):
-    """Pre-norm attention + MLP layer (``block_seq`` of the reference)."""
+    """Pre-norm attention + MLP layer (``block_seq`` of the reference); the
+    hybrid family adds a parallel SSM branch and mean-fuses the normed
+    outputs of the two."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
+        self.cfg = cfg
         self.eps = cfg.norm_eps
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model, device=device))
         self.attn = L.Attention(cfg, dtype, device)
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model, device=device))
+        if cfg.family == "hybrid":
+            self.ssm = SSM.SSM(cfg, dtype, device)
+            self.ln_attn_o = nn.Parameter(torch.ones(cfg.d_model,
+                                                     device=device))
+            self.ln_ssm_o = nn.Parameter(torch.ones(cfg.d_model,
+                                                    device=device))
         self.mlp = L.MLP(cfg, dtype, device)
 
-    def forward(self, x, cos, sin):
-        x = x + self.attn(L.rms_norm(x, self.ln1, self.eps), cos, sin)
+    def _fuse(self, x, attn_out, ssm_out):
+        fused = 0.5 * (L.rms_norm(attn_out, self.ln_attn_o, self.eps)
+                       + L.rms_norm(ssm_out, self.ln_ssm_o, self.eps))
+        return x + fused
+
+    def forward(self, x, cos, sin, *, window: int = 0):
+        """Returns (x_out, (k, v), new_states or None)."""
+        h = L.rms_norm(x, self.ln1, self.eps)
+        attn_out, kv = self.attn(h, cos, sin, window=window)
+        states = None
+        if self.cfg.family == "hybrid":
+            ssm_out, h_last = SSM.ssm_scan(self.ssm, h)
+            x = self._fuse(x, attn_out, ssm_out)
+            states = {"ssm_h": h_last}
+        else:
+            x = x + attn_out
+        x = x + self.mlp(L.rms_norm(x, self.ln2, self.eps))
+        return x, kv, states
+
+    def decode(self, x, cache: dict, pos: int, *, ring: bool):
+        """One layer, one new token (``block_decode``). x (B,1,D); ``cache``
+        holds this layer's slices, written in place."""
+        cfg = self.cfg
+        h = L.rms_norm(x, self.ln1, self.eps)
+        q, k, v = self.attn.qkv_proj(h)
+        rot = _rope_dim(cfg)
+        posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                          device=x.device)
+        cos, sin = L.rope_angles(posv, rot, cfg.rope_theta)
+        q = L.apply_rope(q, cos, sin, cfg.rope_frac)
+        k = L.apply_rope(k, cos, sin, cfg.rope_frac)
+        ck, cv, cp = L.cache_write(cache["k"], cache["v"], cache["pos"], k, v,
+                                   pos, ring)
+        window = cfg.long_context_window if ring else 0
+        valid = cp >= 0
+        if window:
+            valid = valid & (cp > pos - window)
+        attn_out = self.attn.out_proj(L.decode_attention(q, ck, cv, valid,
+                                                         cfg))
+        if cfg.family == "hybrid":
+            ssm_out, h_new = SSM.ssm_step(self.ssm, h, cache["ssm_h"])
+            x = self._fuse(x, attn_out, ssm_out)
+            cache["ssm_h"].copy_(h_new)
+        else:
+            x = x + attn_out
         return x + self.mlp(L.rms_norm(x, self.ln2, self.eps))
 
 
+class RWKVBlock(nn.Module):
+    """RWKV6 layer (the ``ssm`` family): time-mix + channel-mix, each
+    pre-normed, carrying token-shift and WKV states."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        self.eps = cfg.norm_eps
+        self.ln1 = nn.Parameter(torch.ones(cfg.d_model, device=device))
+        self.tm = RWKV.TimeMix(cfg, dtype, device)
+        self.ln2 = nn.Parameter(torch.ones(cfg.d_model, device=device))
+        self.cm = RWKV.ChannelMix(cfg, dtype, device)
+
+    def forward(self, x, states: dict):
+        """Returns (x_out, new_states)."""
+        tm_out, tm_shift, wkv = RWKV.time_mix(
+            self.tm, L.rms_norm(x, self.ln1, self.eps), self.cfg,
+            states["tm_shift"], states["wkv"])
+        x = x + tm_out
+        cm_out, cm_shift = RWKV.channel_mix(
+            self.cm, L.rms_norm(x, self.ln2, self.eps), states["cm_shift"])
+        return x + cm_out, {"tm_shift": tm_shift, "cm_shift": cm_shift,
+                            "wkv": wkv}
+
+    def decode(self, x, cache: dict):
+        tm_out, tm_shift, wkv = RWKV.time_mix_step(
+            self.tm, L.rms_norm(x, self.ln1, self.eps), self.cfg,
+            cache["tm_shift"], cache["wkv"])
+        x = x + tm_out
+        cm_out, cm_shift = RWKV.channel_mix_step(
+            self.cm, L.rms_norm(x, self.ln2, self.eps), cache["cm_shift"])
+        for name, val in (("tm_shift", tm_shift), ("cm_shift", cm_shift),
+                          ("wkv", wkv)):
+            cache[name].copy_(val)
+        return x + cm_out
+
+
+def _init_seq_states(cfg: ModelConfig, batch: int, dtype, device):
+    """Zero recurrent states of one RWKV6 layer."""
+    d, hs = cfg.d_model, cfg.rwkv_head_size
+    return {"tm_shift": torch.zeros((batch, d), dtype=dtype, device=device),
+            "cm_shift": torch.zeros((batch, d), dtype=dtype, device=device),
+            "wkv": torch.zeros((batch, d // hs, hs, hs), dtype=torch.float32,
+                               device=device)}
+
+
 class DecoderLM(nn.Module):
-    """Dense decoder LM: embed -> blocks -> RMSNorm -> (tied) unembed."""
+    """Decoder LM: embed -> blocks -> RMSNorm -> (tied) unembed."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        if cfg.family != "dense" or cfg.is_moe or cfg.n_prefix_tokens:
+        if cfg.family not in FAMILIES or cfg.is_moe or cfg.n_prefix_tokens:
             raise NotImplementedError(
                 f"model family {cfg.family!r} is ROADMAP queue 4; the port "
-                f"builds the dense family")
-        if cfg.rope_frac <= 0.0 or cfg.sliding_window:
+                f"builds {FAMILIES}")
+        if cfg.family != "ssm" and (cfg.rope_frac <= 0.0
+                                    or cfg.sliding_window):
             raise NotImplementedError(
                 "NoPE and sliding-window dense variants are ROADMAP queue 4")
         dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(
             cfg.padded_vocab, cfg.d_model, dtype=dtype, device=device))
+        block = RWKVBlock if cfg.family == "ssm" else Block
         self.blocks = nn.ModuleList(
-            Block(cfg, dtype, device) for _ in range(cfg.n_layers))
+            block(cfg, dtype, device) for _ in range(cfg.n_layers))
         self.norm_f = nn.Parameter(torch.ones(cfg.d_model, device=device))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(
@@ -66,14 +185,69 @@ class DecoderLM(nn.Module):
             logits = logits + mask
         return logits
 
-    def forward(self, tokens):
-        """tokens (B, S) int -> logits (B, S, padded_vocab)."""
+    def forward(self, tokens, *, collect_cache: bool = False,
+                last_only: bool = False):
+        """tokens (B, S) int -> logits (B, S, padded_vocab) (``last_only``:
+        (B, 1, V)); with ``collect_cache`` also the stacked per-layer cache
+        (k, v post-RoPE and pos; ssm_h; or the RWKV states)."""
         cfg = self.cfg
         x = self.embed[tokens]
-        rot = int(cfg.head_dim * cfg.rope_frac)
-        rot -= rot % 2
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        cos, sin = L.rope_angles(positions, rot, cfg.rope_theta)
-        for blk in self.blocks:
-            x = blk(x, cos, sin)
-        return self.unembed(x)
+        b, s = tokens.shape
+        caches: dict = {}
+        if cfg.family == "ssm":
+            for blk in self.blocks:
+                x, st = blk(x, _init_seq_states(cfg, b, x.dtype, x.device))
+                if collect_cache:
+                    for name, val in st.items():
+                        caches.setdefault(name, []).append(val)
+        else:
+            window = cfg.long_context_window if cfg.family == "hybrid" \
+                else 0
+            positions = torch.arange(s, device=tokens.device)
+            cos, sin = L.rope_angles(positions, _rope_dim(cfg),
+                                     cfg.rope_theta)
+            for blk in self.blocks:
+                x, (k, v), st = blk(x, cos, sin, window=window)
+                if collect_cache:
+                    caches.setdefault("k", []).append(k)
+                    caches.setdefault("v", []).append(v)
+                    if st is not None:
+                        caches.setdefault("ssm_h", []).append(st["ssm_h"])
+            if collect_cache:
+                caches["pos"] = [positions.to(torch.int32).expand(b, s)] \
+                    * cfg.n_layers
+        if last_only:
+            x = x[:, -1:]
+        logits = self.unembed(x)
+        if not collect_cache:
+            return logits
+        return logits, {name: torch.stack(vals)
+                        for name, vals in caches.items()}
+
+    def decode(self, cache: dict, token, pos: int, *, ring: bool = False):
+        """One decode step (``decoder_decode``). token (B,) int; ``pos`` the
+        absolute position. Updates ``cache`` in place; returns (logits
+        (B, V), cache)."""
+        x = self.embed[token][:, None, :]
+        for i, blk in enumerate(self.blocks):
+            layer = {name: val[i] for name, val in cache.items()}
+            if self.cfg.family == "ssm":
+                x = blk.decode(x, layer)
+            else:
+                x = blk.decode(x, layer, pos, ring=ring)
+        return self.unembed(x[:, 0, :]), cache
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                      device):
+    """Stacked decode cache of the decoder families."""
+    nl = cfg.n_layers
+    if cfg.family == "ssm":
+        st = _init_seq_states(cfg, batch, dtype, device)
+        return {name: val[None].repeat(nl, *([1] * val.dim()))
+                for name, val in st.items()}
+    cache = L.init_kv_cache(cfg, batch, max_len, nl, dtype, device)
+    if cfg.family == "hybrid":
+        cache["ssm_h"] = torch.zeros((nl, batch, cfg.d_model, cfg.ssm_state),
+                                     dtype=torch.float32, device=device)
+    return cache

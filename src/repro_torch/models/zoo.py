@@ -1,12 +1,20 @@
-"""Model dispatch: ``init_model``, ``forward`` and ``token_loss``.
+"""Model dispatch: ``init_model``, ``forward``, ``token_loss`` and the
+serving step builders ``make_prefill_step``, ``make_serve_step`` and
+``init_cache``.
 
-Counterpart of ``src/repro/models/zoo.py`` (dense family). ``init_model``
-draws every weight from a seeded ``torch.Generator`` on the target device
-with the reference's law — truncated normal on [-2, 2] scaled by the
-fan-in (``layers.dense_init``), ``d_model ** -0.5`` for the embedding,
-ones for the norms — so its numbers differ from the reference's
-``jax.random`` draws by design; the tests load the reference's parameters
-through convert.py instead.
+Counterpart of ``src/repro/models/zoo.py`` (dense, hybrid and ssm
+families). ``init_model`` draws every weight from a seeded
+``torch.Generator`` on the target device with the reference's law —
+truncated normal on [-2, 2] scaled by the fan-in (``layers.dense_init``),
+``d_model ** -0.5`` for the embedding, 1/sqrt(fan-in) for output
+projections, 0.01 for the RWKV decay LoRA's second factor, 0.5 for the
+RWKV bonus ``u``, ones for the norms, and the constants the reference sets
+(RWKV mu = 0.5, w0 = -1; SSM a_log = log(1..N), d_skip = 1, dt_bias = 0) —
+so its numbers differ from the reference's ``jax.random`` draws by design;
+the tests load the reference's parameters through convert.py instead.
+
+The step builders are forward-only and run under ``torch.no_grad()``; the
+serving caches are written in place.
 """
 from __future__ import annotations
 
@@ -16,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.transformer import DecoderLM, init_decode_cache
 
 
 def _fan_in_scale(shape) -> float:
@@ -26,7 +34,8 @@ def _fan_in_scale(shape) -> float:
 @torch.no_grad()
 def init_model(cfg: ModelConfig, *, seed: int = 0,
                device="cuda") -> DecoderLM:
-    """Build the dense decoder on ``device`` with seeded random weights."""
+    """Build the decoder of ``cfg.family`` (dense, hybrid or ssm) on
+    ``device`` with seeded random weights."""
     dev = resolve_device(device)
     model = DecoderLM(cfg, dev)
     gen = torch.Generator(device=dev)
@@ -39,10 +48,24 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 
     draw(model.embed, cfg.d_model ** -0.5)
     for blk in model.blocks:
+        if cfg.family == "ssm":
+            tm, cm = blk.tm, blk.cm
+            for w in (tm.wr, tm.wk, tm.wv, tm.wg, tm.wa, cm.wk, cm.wr):
+                draw(w, _fan_in_scale(w.shape))
+            draw(tm.wo, 1.0 / math.sqrt(cfg.d_model))
+            draw(tm.wb, 0.01)
+            draw(tm.u, 0.5)
+            draw(cm.wv, 1.0 / math.sqrt(cfg.d_ff))
+            continue
         a, f = blk.attn, blk.mlp
         for w in (a.wq, a.wk, a.wv):
             draw(w, _fan_in_scale(w.shape))
         draw(a.wo, 1.0 / math.sqrt(a.wo.shape[0]))
+        if cfg.family == "hybrid":
+            m = blk.ssm
+            for w in (m.win, m.wbc, m.wdt, m.wdt2):
+                draw(w, _fan_in_scale(w.shape))
+            draw(m.wout, 1.0 / math.sqrt(cfg.d_model))
         draw(f.wi, _fan_in_scale(f.wi.shape))
         if cfg.glu:
             draw(f.wg, _fan_in_scale(f.wg.shape))
@@ -53,9 +76,43 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 
 
 def forward(cfg: ModelConfig, model: DecoderLM, tokens):
-    """Returns (logits, aux); aux is 0 for the dense family."""
+    """Returns (logits, aux); aux is 0 for the ported (non-MoE) families."""
     del cfg  # the model carries its config
     return model(tokens), 0.0
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Returns prefill(model, batch) -> (last_logits (B, V), cache)."""
+    del cfg
+
+    @torch.no_grad()
+    def prefill(model: DecoderLM, batch: dict):
+        logits, cache = model(batch["tokens"], collect_cache=True,
+                              last_only=True)
+        return logits[:, -1, :], cache
+
+    return prefill
+
+
+def make_serve_step(cfg: ModelConfig, *, ring: bool = False):
+    """Returns serve(model, cache, token, pos) -> (next_token, logits,
+    cache). Greedy decode; ``cache`` is updated in place."""
+    del cfg
+
+    @torch.no_grad()
+    def serve(model: DecoderLM, cache: dict, token, pos: int):
+        logits, cache = model.decode(cache, token, int(pos), ring=ring)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        return nxt, logits, cache
+
+    return serve
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device="cuda") -> dict:
+    """Empty stacked decode cache on ``device`` (the card by default)."""
+    return init_decode_cache(cfg, batch, max_len, getattr(torch, cfg.dtype),
+                             resolve_device(device))
 
 
 def token_loss(cfg: ModelConfig, logits, labels, weights=None,

@@ -11,6 +11,7 @@ from repro_torch.core.engine import WirelessEngine
 from repro_torch.data import TaskConfig
 from repro_torch.fl import FLServer
 from repro_torch.kernels.backend import resolve_backend, resolve_device
+from repro_torch.launch.serve import run_serve
 from repro_torch.models import zoo
 
 REPO = Path(__file__).resolve().parents[1]
@@ -38,7 +39,9 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "src/repro_torch/core/engine.py",
             "src/repro_torch/fl/server.py",
-            "src/repro_torch/kernels/fedagg.py"} <= names
+            "src/repro_torch/kernels/fedagg.py",
+            "src/repro_torch/kernels/swa.py", "src/repro_torch/kernels/wkv6.py",
+            "src/repro_torch/launch/serve.py"} <= names
 
 
 @pytest.fixture
@@ -60,6 +63,17 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="cuda"):
         FLServer(cfg, FLConfig(n_clients=4, samples_per_client=(8, 8)),
                  NOMAConfig(), TaskConfig())
+
+
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "rwkv6_7b"])
+def test_serving_entry_points_default_to_cuda(arch, no_card):
+    cfg = get_config(arch).reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        zoo.init_model(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        zoo.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_serve(cfg, batch=1, prompt_len=2, gen=1)
 
 
 def test_explicit_cpu_runs_the_plain_versions():

@@ -12,7 +12,10 @@ import torch
 from repro_torch.configs import FLConfig, NOMAConfig
 from repro_torch.core.engine import WirelessEngine
 from repro_torch.fl.aggregate import aggregate_deltas
-from repro_torch.kernels import backend, fedagg, pairscore, planner
+from repro_torch.configs import get_config
+from repro_torch.kernels import backend, fedagg, pairscore, planner, swa, wkv6
+from repro_torch.launch.serve import run_serve
+from repro_torch.models import zoo
 
 KW = dict(n0b=1e-14, pmax=0.2, bw=1e6)
 PAIR_TOL = dict(rtol=1e-6, atol=1e-9)
@@ -160,3 +163,117 @@ class TestOnCard:
                                     cpu[:1].repeat(3, 0), 1e6)
         assert planner.planner_tables.launches == before + 4
         assert bool((mc["n_selected"] == 10).all())
+
+
+def bf16_ulp(x) -> float:
+    """One bf16 ulp at max|x|."""
+    m = float(x.float().abs().max())
+    return 2.0 ** (np.floor(np.log2(m)) - 7)
+
+
+def seeded(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(dev)
+
+
+@pytest.mark.cuda
+class TestServingKernels:
+    """swa and wkv6 against their plain versions on the card, and the
+    serving path of the hybrid and ssm families through them."""
+
+    @pytest.mark.parametrize("b,s,h,kh,hd,w,cap", [
+        (2, 4096, 25, 5, 64, 2048, 0.0),     # hymba's prefill
+        (1, 700, 25, 5, 64, 2048, 0.0),      # S < W
+        (2, 1000, 6, 3, 64, 300, 0.0),       # S, W off the block
+        (1, 129, 4, 2, 64, 1, 0.0),          # W = 1
+        (1, 500, 4, 4, 64, 100, 0.0),        # g = 1
+        (1, 600, 8, 2, 64, 200, 5.0),        # softcap
+        (2, 300, 4, 1, 16, 256, 0.0),        # reduced hymba
+    ])
+    def test_swa(self, b, s, h, kh, hd, w, cap):
+        """bf16 output from fp32 accumulation on both sides: max abs err
+        within one bf16 ulp of max|out|."""
+        dev = cuda_device()
+        q = seeded((b, s, h, hd), 1, dev).bfloat16() * (8.0 if cap else 1.0)
+        k = seeded((b, s, kh, hd), 2, dev).bfloat16()
+        v = seeded((b, s, kh, hd), 3, dev).bfloat16()
+        before = swa.swa.launches
+        out = swa.swa(q, k, v, window=w, softcap=cap)
+        assert swa.swa.launches == before + 1
+        ref = swa.swa_plain(q, k, v, window=w, softcap=cap)
+        err = float((out.float() - ref.float()).abs().max())
+        assert out.dtype == torch.bfloat16 and err <= bf16_ulp(ref)
+
+    @pytest.mark.parametrize("b,h,t,c,chunk,clip,with_s0,dtype", [
+        (1, 64, 4096, 64, 128, False, False, torch.bfloat16),
+        (1, 64, 4096, 64, 128, True, True, torch.bfloat16),
+        (2, 64, 77, 64, 128, False, True, torch.bfloat16),
+        (1, 8, 1000, 64, 64, False, True, torch.bfloat16),
+        (2, 8, 300, 16, 128, False, True, torch.float32),
+    ])
+    def test_wkv6(self, b, h, t, c, chunk, clip, with_s0, dtype):
+        """out and s_T in fp32: max abs err <= 1e-4 of the max magnitude."""
+        dev = cuda_device()
+        r, k, v = (seeded((b, h, t, c), i, dev).to(dtype) * 0.5
+                   for i in range(3))
+        wt = (torch.full((b, h, t, c), 4.0, device=dev) if clip
+              else seeded((b, h, t, c), 4, dev) - 1.0)
+        w_log = -torch.exp(torch.clamp(wt, -8.0, 4.0))
+        u = seeded((h, c), 5, dev) * 0.5
+        s0 = seeded((b, h, c, c), 6, dev) * 0.1 if with_s0 else None
+        before = wkv6.wkv6.launches
+        out, s_t = wkv6.wkv6(r, k, v, w_log, u, s0, chunk=chunk)
+        assert wkv6.wkv6.launches == before + 1
+        ref, ref_s = wkv6.wkv6_plain(r, k, v, w_log, u, s0, chunk=chunk)
+        for got, want in ((out, ref), (s_t, ref_s)):
+            err = float((got - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max())
+
+    @pytest.mark.parametrize("arch,kernel", [("hymba_1_5b", "swa"),
+                                             ("rwkv6_7b", "wkv6")])
+    def test_prefill_launches_its_kernel_once_per_layer(self, arch, kernel):
+        dev = cuda_device()
+        cfg = get_config(arch).reduced()
+        model = zoo.init_model(cfg, seed=0, device=dev)
+        fn = {"swa": swa.swa, "wkv6": wkv6.wkv6}[kernel]
+        before = fn.launches
+        toks = torch.randint(0, cfg.vocab_size, (2, 300), device=dev)
+        last, _ = zoo.make_prefill_step(cfg)(model, {"tokens": toks})
+        assert fn.launches == before + cfg.n_layers
+        assert bool(torch.isfinite(last).all())
+
+    @pytest.mark.parametrize("kernel", ["swa", "wkv6"])
+    def test_a_call_that_needs_a_gradient_raises(self, kernel):
+        dev = cuda_device()
+        if kernel == "swa":
+            q = seeded((1, 16, 2, 16), 1, dev).requires_grad_()
+            args = (q, seeded((1, 16, 1, 16), 2, dev),
+                    seeded((1, 16, 1, 16), 3, dev))
+            call = lambda: swa.swa(*args, window=4)
+        else:
+            r = seeded((1, 1, 8, 16), 1, dev).requires_grad_()
+            args = (r, r.detach(), r.detach(), -torch.ones(1, 1, 8, 16,
+                                                           device=dev),
+                    torch.zeros(1, 16, device=dev))
+            call = lambda: wkv6.wkv6(*args, chunk=4)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+        with torch.no_grad():
+            call()
+
+    @pytest.mark.parametrize("arch", ["hymba_1_5b", "rwkv6_7b"])
+    def test_run_serve_on_the_card_never_takes_the_plain_path(
+            self, arch, monkeypatch):
+        dev = cuda_device()
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("a plain kernel version ran on the card")
+
+        monkeypatch.setattr(swa, "swa_plain", refuse)
+        monkeypatch.setattr(wkv6, "wkv6_plain", refuse)
+        cfg = get_config(arch).reduced()
+        res = run_serve(cfg, batch=2, prompt_len=300, gen=4, seed=0,
+                        device=dev)
+        assert res["tokens"].shape == (2, 4)
+        assert ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab_size)).all()

@@ -177,6 +177,7 @@ class TestBuild:
 
     def test_sources_and_flags(self):
         assert {s.name for s in build.sources()} == {
-            "fedagg.cu", "pairscore.cu", "planner.cu", "probe.cu"}
+            "fedagg.cu", "pairscore.cu", "planner.cu", "probe.cu", "swa.cu",
+            "wkv6.cu"}
         assert "--use_fast_math" not in build.NVCC_FLAGS
         assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
