@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import statistics
@@ -116,6 +117,30 @@ def time_ms(torch, fn, *, reps: int = 20, runs: int = 7) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, *, reps: int = 10) -> float:
+    """Mean device time of one call of ``fn``: the kernels it launched, as
+    ``torch.profiler`` records them, over ``reps`` calls (host time, such
+    as a ctypes wrapper's, is not in it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    # a session now and then comes back without its device records: take
+    # a fresh one, at most three
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if kern:
+            return sum(e.self_device_time_total for e in kern) / 1e3 / reps
+    raise AssertionError("torch.profiler recorded no device kernel in three "
+                         "sessions")
+
+
 def max_err(torch, out, ref) -> float:
     return max(float((o.float() - r.float()).abs().max()) if o.numel()
                else 0.0 for o, r in zip(out, ref))
@@ -138,8 +163,10 @@ def phase_probe(torch, dev, kinfo):
     kinfo["probe_kernel"] = dict(
         max_abs_err=max_err(torch, [y], [ref]),
         ms=time_ms(torch, lambda: backend.probe_kernel(x)),
+        device_ms=device_ms(torch, lambda: backend.probe_kernel(x)),
         plain_ms=time_ms(torch, lambda: backend.probe_plain(x)),
         library_ms=time_ms(torch, lambda: torch.add(x, 1.0)),
+        library_device_ms=device_ms(torch, lambda: torch.add(x, 1.0)),
         bound_ms=b_ms, bound_by=b_by, tolerance="exact", shape=[8, 128])
 
 
@@ -175,13 +202,15 @@ def phase_pairscore(torch, dev, kinfo):
         timings[name] = dict(
             shape=list(shape),
             ms=time_ms(torch, lambda: P.pairscore(g_i, g_j, **kw)),
+            device_ms=device_ms(torch, lambda: P.pairscore(g_i, g_j, **kw)),
             plain_ms=time_ms(torch, lambda: P.pair_math(g_i, g_j, **kw)),
             bound_ms=b_ms, bound_by=b_by)
         log(f"pairscore {shape}: {timings[name]}")
     fl = timings["fl"]
     kinfo["pairscore"] = dict(
         max_abs_err=max(errs[k] for k in ("(1, 5)", "(1, 5)/oma")),
-        ms=fl["ms"], plain_ms=fl["plain_ms"], library_ms=None,
+        ms=fl["ms"], device_ms=fl["device_ms"], plain_ms=fl["plain_ms"],
+        library_ms=None, library_device_ms=None,
         bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
         tolerance="rtol 1e-6, atol 1e-9", shape=fl["shape"],
         at_montecarlo_shape=timings["montecarlo"])
@@ -224,10 +253,12 @@ def phase_fedagg(torch, dev, kinfo):
     kinfo["fedagg"] = dict(
         max_abs_err=err,
         ms=time_ms(torch, lambda: F.fedagg(u, w), reps=10, runs=5),
+        device_ms=device_ms(torch, lambda: F.fedagg(u, w)),
         plain_ms=time_ms(torch, lambda: F.fedagg_plain(u, w), reps=3,
                          runs=5),
         library_ms=time_ms(torch, lambda: torch.mv(u.t(), w), reps=10,
                            runs=5),
+        library_device_ms=device_ms(torch, lambda: torch.mv(u.t(), w)),
         bound_ms=b_ms, bound_by=b_by, tolerance="fp32 1e-6, bf16 1e-5",
         shape=[c, n], checks=checks)
     log(f"fedagg ({c}, {n}) fp32: {kinfo['fedagg']}")
@@ -273,6 +304,8 @@ def phase_planner(torch, dev, kinfo):
         timings[name] = dict(
             shape=[b, c],
             ms=time_ms(torch, lambda: PL.planner_tables(g, t, mb, **kw)),
+            device_ms=device_ms(torch, lambda: PL.planner_tables(
+                g, t, mb, **kw)),
             plain_ms=time_ms(torch, lambda: PL.planner_tables_plain(
                 g, t, mb, **kw)),
             bound_ms=b_ms, bound_by=b_by)
@@ -280,7 +313,8 @@ def phase_planner(torch, dev, kinfo):
     fl = timings["fl"]
     kinfo["planner"] = dict(
         max_abs_err=max(errs[k] for k in ("(1, 10)", "(1, 10)/oma")),
-        ms=fl["ms"], plain_ms=fl["plain_ms"], library_ms=None,
+        ms=fl["ms"], device_ms=fl["device_ms"], plain_ms=fl["plain_ms"],
+        library_ms=None, library_device_ms=None,
         bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
         tolerance="table 1 bf16 ulp (rtol 2^-7); row_min, t_sw rtol 1e-6",
         shape=fl["shape"], at_montecarlo_shape=timings["montecarlo"],
@@ -293,14 +327,34 @@ def bf16_ulp(x) -> float:
     return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
 
 
+def row_ulps(torch, out, ref):
+    """Per (b, query, head) row: max |out - ref| in bf16 ulps of that row's
+    max|ref|; the largest over the rows."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    peak = ref.float().abs().amax(-1).clamp_min(2.0 ** -126)
+    return float((err / torch.exp2(torch.floor(torch.log2(peak)) - 7)).max())
+
+
+# Per-row tolerance of swa, in bf16 ulps of the row's max|ref|. The bf16
+# kernel rounds P to bf16 before P V (2^-9 relative per weight); a row with
+# few keys does not average that out, and where its values cancel it can
+# move the output by more than half an ulp before the output's own
+# rounding. phase_swa's seed sweep shows where it comes from: on the same
+# inputs the fp32 kernel (the same walk with P in fp32), its output rounded
+# to bf16, stays within one ulp on every row.
+SWA_ROW_ULPS = {"bfloat16": 2.0, "float32": 1.0}
+
+
 def swa_pairs(s: int, w: int) -> int:
     """(query, key) pairs of a causal band of width w over s positions."""
     return sum(min(i + 1, w) for i in range(s))
 
 
 def phase_swa(torch, dev, kinfo):
-    """swa against its plain version: bf16 output from fp32 accumulation
-    on both sides, so max abs err <= one bf16 ulp of max|out|."""
+    """swa against its plain version, held twice: max abs err within one
+    bf16 ulp of max|out| over the whole output, and within SWA_ROW_ULPS
+    bf16 ulps of its own max|out| on every (b, query, head) row. bf16 runs
+    the tensor-core kernel, fp32 the CUDA-core one."""
     import torch.nn.functional as F
     from repro_torch.kernels import swa as SW
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -310,28 +364,60 @@ def phase_swa(torch, dev, kinfo):
                 for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd))]
 
     hymba = (2, 4096, 25, 5, 64, 2048, 0.0)
-    cases = {"hymba prefill": hymba,
-             "S < W": (1, 700, 25, 5, 64, 2048, 0.0),
-             "S, W off the block": (2, 1000, 6, 3, 64, 300, 0.0),
-             "W = 1": (1, 129, 4, 2, 64, 1, 0.0),
-             "g = 1": (1, 500, 4, 4, 64, 100, 0.0),
-             "softcap 5": (1, 600, 8, 2, 64, 200, 5.0),
-             "hd 16 (reduced)": (2, 300, 4, 1, 16, 256, 0.0)}
+    shapes = {"hymba prefill": hymba,
+              "S < W": (1, 700, 25, 5, 64, 2048, 0.0),
+              "S, W off the block": (2, 1000, 6, 3, 64, 300, 0.0),
+              "W = 1": (1, 129, 4, 2, 64, 1, 0.0),
+              "g = 1": (1, 500, 4, 4, 64, 100, 0.0),
+              "softcap 5": (1, 600, 8, 2, 64, 200, 5.0),
+              "hd 16 (reduced)": (2, 300, 4, 1, 16, 256, 0.0)}
+    # S and W on, one below and one past the 64-key tile and the 128-query
+    # block
+    shapes.update({f"tile edge S={s} W={w}": (2, s, 6, 2, 64, w, 0.0)
+                   for s in (63, 64, 65, 127, 128, 129)
+                   for w in (63, 64, 65, 128, 4096)})
     errs = {}
-    for name, (b, s, h, kh, hd, w, cap) in cases.items():
-        q, k, v = qkv(b, s, h, kh, hd)
+    for (name, (b, s, h, kh, hd, w, cap)), dt in itertools.product(
+            shapes.items(), SWA_ROW_ULPS):
+        q, k, v = qkv(b, s, h, kh, hd, getattr(torch, dt))
         if cap:
             q = q * 8.0                       # scores well past the cap
         out = SW.swa(q, k, v, window=w, softcap=cap)
         torch.cuda.synchronize()
         ref = SW.swa_plain(q, k, v, window=w, softcap=cap)
         err, tol = max_err(torch, [out], [ref]), bf16_ulp(ref)
-        if not err <= tol:
-            raise AssertionError(f"swa {name}: max abs err {err} > one bf16 "
-                                 f"ulp {tol}")
-        errs[name] = dict(max_abs_err=err, tolerance=tol)
+        rows = row_ulps(torch, out, ref)
+        if not (err <= tol and rows <= SWA_ROW_ULPS[dt]):
+            raise AssertionError(
+                f"swa {name} {dt}: max abs err {err} (one bf16 ulp of "
+                f"max|out| {tol}), worst row {rows} bf16 ulps of its max "
+                f"(held at {SWA_ROW_ULPS[dt]})")
+        errs[f"{name} {dt}"] = dict(max_abs_err=err, tolerance=tol,
+                                    worst_row_ulps=rows)
         del q, k, v, out, ref
-    log(f"swa agrees with its plain version (1 bf16 ulp of max|out|): {errs}")
+    # the reduced hymba shape over 16 seeds, worst row against the plain
+    # version: the bf16 kernel within SWA_ROW_ULPS, the fp32 kernel on the
+    # same values (P in fp32), rounded to bf16, within one ulp
+    b, s, h, kh, hd, w, _ = shapes["hd 16 (reduced)"]
+    sweep = {"bf16_kernel": 0.0, "fp32_kernel_rounded": 0.0}
+    for seed in range(16):
+        gen.manual_seed(1000 + seed)
+        q, k, v = qkv(b, s, h, kh, hd)
+        ref = SW.swa_plain(q, k, v, window=w)
+        sweep["bf16_kernel"] = max(sweep["bf16_kernel"], row_ulps(
+            torch, SW.swa(q, k, v, window=w), ref))
+        sweep["fp32_kernel_rounded"] = max(
+            sweep["fp32_kernel_rounded"], row_ulps(torch, SW.swa(
+                q.float(), k.float(), v.float(), window=w).bfloat16(), ref))
+    if not (sweep["bf16_kernel"] <= SWA_ROW_ULPS["bfloat16"]
+            and sweep["fp32_kernel_rounded"] <= 1.0):
+        raise AssertionError(f"swa seed sweep, worst row in bf16 ulps: "
+                             f"{sweep}")
+    worst = {dt: max(e["worst_row_ulps"] for n, e in errs.items()
+                     if n.endswith(dt)) for dt in SWA_ROW_ULPS}
+    log(f"swa agrees with its plain version in {len(errs)} cases (1 bf16 "
+        f"ulp of max|out|; per row {SWA_ROW_ULPS}); worst row in ulps "
+        f"{worst}; reduced shape over 16 seeds {sweep}: {errs}")
     b, s, h, kh, hd, w, _ = hymba
     q, k, v = qkv(b, s, h, kh, hd)
     # the library yardstick: SDPA with the band as a boolean mask, (B,H,S,hd)
@@ -348,19 +434,26 @@ def phase_swa(torch, dev, kinfo):
     pairs = swa_pairs(s, w) * b * h
     b_ms, b_by = bound(2 * b * s * (2 * h + 2 * kh) * hd, 4 * hd * pairs,
                        PEAK_BF16_S)
+    main = errs["hymba prefill bfloat16"]
     kinfo["swa"] = dict(
-        max_abs_err=errs["hymba prefill"]["max_abs_err"],
-        ms=time_ms(torch, lambda: SW.swa(q, k, v, window=w), reps=5, runs=5),
+        max_abs_err=main["max_abs_err"],
+        worst_row_ulps=main["worst_row_ulps"],
+        ms=time_ms(torch, lambda: SW.swa(q, k, v, window=w), reps=20,
+                   runs=7),
+        device_ms=device_ms(torch, lambda: SW.swa(q, k, v, window=w)),
         plain_ms=time_ms(torch, lambda: SW.swa_plain(q, k, v, window=w),
                          reps=2, runs=3),
         library_ms=time_ms(torch, sdpa, reps=5, runs=5),
+        library_device_ms=device_ms(torch, sdpa, reps=5),
         library="scaled_dot_product_attention(attn_mask=band, "
                 "enable_gqa=True)",
         library_max_abs_err=lib_err,
         bound_ms=b_ms, bound_by=b_by, bound_peak="989 TFLOP/s bf16, "
                                                  "3.35 TB/s",
-        tolerance="1 bf16 ulp of max|out|", shape=list(hymba[:6]),
-        checks=errs)
+        tolerance=f"1 bf16 ulp of max|out|; per row "
+                  f"{SWA_ROW_ULPS['bfloat16']} bf16 ulps of the row's max",
+        shape=list(hymba[:6]), worst_row_ulps_by_dtype=worst,
+        seed_sweep_worst_row_ulps=sweep, checks=errs)
     log(f"swa {hymba[:6]}: {kinfo['swa']}")
 
 
@@ -418,9 +511,12 @@ def phase_wkv6(torch, dev, kinfo):
         max_abs_err=errs["rwkv6 prefill"]["out_err"],
         s_T_max_abs_err=errs["rwkv6 prefill"]["s_T_err"],
         ms=time_ms(torch, lambda: WK.wkv6(*args, chunk=128), reps=5, runs=5),
+        device_ms=device_ms(torch, lambda: WK.wkv6(*args, chunk=128),
+                            reps=5),
         plain_ms=time_ms(torch, lambda: WK.wkv6_plain(*args, chunk=128),
                          reps=2, runs=3),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, library_device_ms=None, bound_ms=b_ms,
+        bound_by=b_by,
         bound_peak="67 TFLOP/s fp32, 3.35 TB/s",
         tolerance="1e-4 of max|out| (and of max|s_T|)",
         shape=[b, h, t, c], chunk=128, checks=errs)
@@ -1077,9 +1173,12 @@ def main() -> int:
     RESULT["build_s"] = time.perf_counter() - t0
     log(f"kernels built in {RESULT['build_s']:.2f} s -> "
         f"{build.BuildInfo.path.name}")
+    entry = "?"
     for line in build.BuildInfo.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            log(f"ptxas: {entry}: {line.strip()}")
 
     kinfo: dict = {}
     phase_probe(torch, dev, kinfo)

@@ -1,33 +1,64 @@
-// swa_kernel: causal sliding-window attention with GQA and an optional tanh
+// swa: causal sliding-window attention with GQA and an optional tanh
 // softcap. Query i attends keys j with i - W < j <= i:
 //
-//   s[i, j] = (q_i * 1/sqrt(hd)) . k_j            (fp32)
+//   s[i, j] = (q_i . k_j) / sqrt(hd)               (fp32)
 //   s       = cap * tanh(s / cap)                  (when cap > 0)
 //   out_i   = sum_j softmax_j(s[i, :]) v_j         (fp32, cast to q's type)
 //
 // q (B, S, H, hd), k/v (B, S, KH, hd), all contiguous, fp32 or bf16; query
 // head h reads KV head (h % H) / (H / KH), which takes any group size
-// (hymba's 25 heads over 5 KV heads, g = 5). The output has q's layout.
+// (hymba's 25 heads over 5 KV heads, g = 5). The output has q's layout and
+// is acc / max(l, 1e-30), so a row with no key would give 0.
 //
 // Replaces `_swa_kernel` (src/repro/kernels/swa.py:27, launched by
 // `swa_pallas` at :110). The Pallas grid walked a fixed number of KV blocks
 // per query block, clamped at the left edge and masking the duplicate
-// visits; it needed S % bq == 0, W % bk == 0 and bq % bk == 0. Here one
-// CTA owns one (b*h, 64-query block) and loops over exactly the keys of
-// its band, [max(0, q0 - W + 1), min(q0 + 63, S - 1)], in tiles of 64, so
-// there are no duplicate visits and every tail (S, W, the band's edges) is
-// masked element by element.
+// visits; it needed S % bq == 0, W % bk == 0 and bq % bk == 0. Here a CTA
+// loops over exactly the key tiles of its band, so there are no duplicate
+// visits and S, W and every tail are free.
 //
 // Bound on the H100: 4 * hd operations per (query, key) pair of the band
-// against (2 q + 2 kv + 1 out) bf16 reads and writes, so at hymba's prefill
-// shape the operations bound it (at the bf16 tensor-core rate). This first
-// kernel is plain fp32 on the CUDA cores: Q, K and V tiles in shared memory
-// (rows padded by one word against bank conflicts), a 4 x 4 register tile of
-// scores per thread, the running softmax (m, l) per row reduced with
-// 16-lane shuffles, and a 4 x (hd / 16) register tile of the output. Fully
-// masked rows are guarded as in the Pallas kernel (m = -inf -> exp base 0),
-// and the output is acc / max(l, 1e-30). Tensor cores (mma / wgmma) and TMA
-// are left to a later change.
+// against one read of q, k, v and one write of the output, so at hymba's
+// prefill shape the operations bound it, at the 989 TFLOP/s bf16
+// tensor-core rate. At hd 64 the softmax's one exp per pair (16 per clock
+// per SM) costs about as much as the two products.
+//
+// bf16 (`swa_wgmma`), the serving path: one CTA per (b, h, 128 queries),
+// two consumer warpgroups of 64 query rows and one producer warp; at 96
+// registers a thread two CTAs share an SM, so four warpgroups interleave
+// their products and softmaxes (the time follows that count: one CTA an SM
+// was slower, and so was an FA3-style pipeline inside a warpgroup).
+//  - The producer's one thread loads the Q tile once and the band's K and
+//    V tiles of 64 keys by TMA (3-D tensor maps over (B, S, KH * hd), box
+//    (64 rows, hd) at column kvh * hd, so rows past S arrive as zeros) into
+//    a ring of NS stages with full/empty mbarriers. Tiles are swizzled
+//    (128 B rows at hd 64, 32 B at hd 16) as wgmma reads them.
+//  - S = Q K^T is `wgmma.m64n64k16` bf16 -> fp32 with Q and K from shared
+//    memory, both K-major. O += P V is `wgmma.m64n{hd}k16` with P in
+//    registers (the S accumulator's layout is the A fragment's, so P is
+//    packed to bf16 in place) and V from shared memory in its stored
+//    [key][hd] layout, MN-major, read with the transpose bit.
+//  - Only the band's left-edge and diagonal tiles, and a tile reaching
+//    past S, are masked; interior tiles skip the mask. The online softmax
+//    keeps (m, l) in fp32 registers in the log2 domain (one FFMA and one
+//    ex2 per score, log2(e) folded into the scale); m is reduced over the
+//    four lanes that hold a row, l stays a per-lane partial sum until the
+//    end. P is rounded to bf16 for the second product (2^-9 relative per
+//    weight): a row with few keys does not average that out, and where its
+//    values cancel it can move the output by more than half a bf16 ulp of
+//    the row before the output's own rounding.
+//  - The output is staged in shared memory and written with 16-byte
+//    stores, rows past S skipped.
+//  - The grid puts the g query heads of one KV head innermost, then the
+//    query blocks from the heaviest (latest) down, so the CTAs resident at
+//    one time re-read one (b, kvh)'s K and V from L2.
+//
+// fp32 (`swa_fp32`), the model-level checks' path, on the CUDA cores: one
+// CTA per (b*h, 64 queries), Q, K and V tiles in shared memory (rows padded
+// by one word), a 4 x 4 register tile of scores per thread, (m, l) reduced
+// with 16-lane shuffles. The tensor cores take no fp32 operands (TF32 would
+// drop 13 bits).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -36,24 +67,19 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int BQ = 64;       // query rows per CTA
 constexpr int BK = 64;       // keys per tile
 constexpr int NT = 256;      // threads: 16 row groups x 16 column lanes
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT)
-swa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ out, int S, int H,
-           int KH, int W, float scale, float cap) {
+swa_fp32(const float* __restrict__ q, const float* __restrict__ k,
+         const float* __restrict__ v, float* __restrict__ out, int S, int H,
+         int KH, int W, float scale, float cap) {
   constexpr int HP = HD + 1;          // padded row of Q and K
   constexpr int DJ = HD / 16;         // output columns per thread
   extern __shared__ float smem[];
@@ -73,14 +99,14 @@ swa_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int64_t q_row = static_cast<int64_t>(H) * HD;     // stride of s in q
   const int64_t kv_row = static_cast<int64_t>(KH) * HD;   // and in k, v
-  const T* qb = q + static_cast<int64_t>(b) * S * q_row + h * HD;
-  const T* kb = k + static_cast<int64_t>(b) * S * kv_row + kvh * HD;
-  const T* vb = v + static_cast<int64_t>(b) * S * kv_row + kvh * HD;
+  const float* qb = q + static_cast<int64_t>(b) * S * q_row + h * HD;
+  const float* kb = k + static_cast<int64_t>(b) * S * kv_row + kvh * HD;
+  const float* vb = v + static_cast<int64_t>(b) * S * kv_row + kvh * HD;
 
   for (int e = tid; e < BQ * HD; e += NT) {
     const int r = e / HD, d = e % HD;
     const int qp = q0 + r;
-    qs[r * HP + d] = qp < S ? to_f(qb[qp * q_row + d]) * scale : 0.0f;
+    qs[r * HP + d] = qp < S ? qb[qp * q_row + d] * scale : 0.0f;
   }
 
   float m[4], l[4], acc[4][DJ];
@@ -100,8 +126,8 @@ swa_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / HD, d = e % HD;
       const int kp = k0 + r;
       const bool in = kp < S;
-      ks[r * HP + d] = in ? to_f(kb[kp * kv_row + d]) : 0.0f;
-      vs[r * HD + d] = in ? to_f(vb[kp * kv_row + d]) : 0.0f;
+      ks[r * HP + d] = in ? kb[kp * kv_row + d] : 0.0f;
+      vs[r * HD + d] = in ? vb[kp * kv_row + d] : 0.0f;
     }
     __syncthreads();
 
@@ -174,7 +200,7 @@ swa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + static_cast<int64_t>(b) * S * q_row + h * HD;
+  float* ob = out + static_cast<int64_t>(b) * S * q_row + h * HD;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty * 4 + i;
@@ -182,59 +208,491 @@ swa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      store(&ob[qp * q_row + tx + 16 * j], acc[i][j] / den);
+      ob[qp * q_row + tx + 16 * j] = acc[i][j] / den;
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int H, int KH, int W, float scale, float cap,
-                   cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v,
+                        void* out, int B, int S, int H, int KH, int W,
+                        float scale, float cap, cudaStream_t stream) {
   constexpr int HP = HD + 1;
   const size_t smem =
       sizeof(float) * (BQ * HP + BK * HP + BK * HD + BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      swa_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      swa_fp32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  swa_kernel<T, HD><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, KH, W, scale,
-      cap);
+  swa_fp32<HD><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, H, KH, W,
+      scale, cap);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* out, int B, int S, int H, int KH, int W,
-                        float scale, float cap, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, B, S, H, KH, W, scale, cap, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, S, H, KH, W, scale, cap, s);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: wgmma and TMA
+// ---------------------------------------------------------------------------
+
+constexpr int WQ = 64;               // query rows per consumer warpgroup
+constexpr int NWG = 2;               // consumer warpgroups
+constexpr int TQ = WQ * NWG;         // query rows per CTA
+constexpr int TK = 64;               // keys per tile
+constexpr int NS = 4;                // stages of the K/V ring
+constexpr int NTW = NWG * 128 + 32;  // + one producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar) : "memory");
+}
+
+// Shared-memory matrix descriptor of wgmma: start, leading and stride byte
+// offsets (>> 4), swizzle mode (1 = 128 B, 3 = 32 B).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (static_cast<uint64_t>(mode) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (m64 n64, fp32) = A (shared, K-major) * B (shared, K-major)
+// (+ d if acc), k16
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (m64 n64, fp32) += A (registers) * B (shared, MN-major), k16
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d (m64 n16, fp32) += A (registers) * B (shared, MN-major), k16
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, "
+      "1, 1, 1, 1;"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x (flushing results below 2^-126 to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Shared-memory layout of one CTA; every tile is 1024-byte aligned, as the
+// 128-byte swizzle needs.
+template <int HD>
+struct Smem {
+  static constexpr int ROW = HD * 2;             // bytes of one row
+  static constexpr int Q = 0;                    // [TQ][HD], swizzled
+  static constexpr int O = Q + TQ * ROW;         // [TQ][HD], output staging
+  static constexpr int K = O + TQ * ROW;         // NS x [TK][HD]
+  static constexpr int V = K + NS * TK * ROW;    // NS x [TK][HD]
+  static constexpr int BAR = V + NS * TK * ROW;  // full[NS], empty[NS], q
+  static constexpr int BYTES = BAR + 8 * (2 * NS + 1);
+  static constexpr int TILE = TK * ROW;
+  // swizzle of a row of ROW bytes: the span is the row itself (128 or 32)
+  static constexpr uint32_t MODE = ROW == 128 ? 1 : 3;
+  static constexpr uint32_t ATOM = 8 * ROW;      // 8 rows of one swizzle
+};
+
+// Two CTAs fit on an SM (96 registers a thread): four consumer warpgroups,
+// so one's softmax runs beside another's products.
+template <int HD>
+__global__ void __launch_bounds__(NTW, 2)
+swa_wgmma(const __grid_constant__ CUtensorMap qmap,
+          const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap,
+          __nv_bfloat16* __restrict__ out, int S, int H, int KH, int W,
+          float scale_log2, float cap) {
+  using L = Smem<HD>;
+  static_assert(HD == 16 || HD == 64, "head_dim 16 or 64");
+  extern __shared__ uint8_t smem_raw[];
+  // align the tiles to 1024 bytes of the shared window
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full0 = base + L::BAR;
+  const uint32_t empty0 = full0 + 8 * NS;
+  const uint32_t qbar = empty0 + 8 * NS;
+
+  // the g query heads of one KV head innermost, then the query blocks from
+  // the latest (heaviest) down, then (b, kvh)
+  const int g = H / KH;
+  const int nqb = (S + TQ - 1) / TQ;
+  int idx = blockIdx.x;
+  const int hg = idx % g;
+  idx /= g;
+  const int qb = nqb - 1 - idx % nqb;
+  idx /= nqb;
+  const int kvh = idx % KH;
+  const int b = idx / KH;
+  const int h = kvh * g + hg;
+  const int q0 = qb * TQ;
+  const int q_last = min(q0 + TQ - 1, S - 1);
+  const int t_lo = max(0, q0 - W + 1) / TK;      // the CTA's key tiles
+  const int n_tiles = q_last / TK - t_lo + 1;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, 4 * NWG);          // one per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
+
+  // tile t of the CTA sits in stage t % NS, filled for the (t / NS)-th time
+  if (tid >= NWG * 128) {
+    // producer: one thread issues every copy
+    if (tid == NWG * 128) {
+      mbar_expect_tx(qbar, TQ * L::ROW);
+      tma_load(base + L::Q, &qmap, h * HD, q0, b, qbar);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % NS;
+        mbar_wait(empty0 + 8 * st, ((t / NS) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * st, 2 * L::TILE);
+        const int k0 = (t_lo + t) * TK;
+        tma_load(base + L::K + st * L::TILE, &kmap, kvh * HD, k0, b,
+                 full0 + 8 * st);
+        tma_load(base + L::V + st * L::TILE, &vmap, kvh * HD, k0, b,
+                 full0 + 8 * st);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows r0 .. r0 + 63
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int quad = lane % 4;
+  const int row = 16 * ((tid / 32) % 4) + lane / 4;   // and row + 8
+  const int r0 = q0 + WQ * wg;
+  const int qp0 = r0 + row, qp1 = qp0 + 8;
+  // this warpgroup's tiles, as indices into the CTA's (none if r0 >= S)
+  const int my_lo = max(0, r0 - W + 1) / TK - t_lo;
+  const int my_hi = r0 < S ? min(r0 + WQ - 1, S - 1) / TK - t_lo : -1;
+
+  const uint64_t qdesc = make_desc(base + L::Q + wg * WQ * L::ROW, 16,
+                                   L::ATOM, L::MODE);
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  float s[TK / 2] = {};
+
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % NS;
+    mbar_wait(full0 + 8 * st, (t / NS) & 1);
+    if (t >= my_lo && t <= my_hi) {
+      // S = Q K^T: both K-major; a k16 step is 32 bytes along the row
+      fence_regs(s);
+      wgmma_fence();
+      const uint64_t kdesc =
+          make_desc(base + L::K + st * L::TILE, 16, L::ATOM, L::MODE);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss(s, qdesc + 2 * kk, kdesc + 2 * kk, kk > 0);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+
+      // s[4j + e] is row (e < 2 ? row : row + 8), key k0 + 8j + 2 quad +
+      // (e & 1); sc * s is the score in the log2 domain
+      const int k0 = (t_lo + t) * TK;
+      float sc = scale_log2;
+      if (cap > 0.0f) {
+        const float capl = cap * LOG2E;
+#pragma unroll
+        for (int i = 0; i < TK / 2; ++i)
+          s[i] = capl * tanhf(s[i] * (scale_log2 / capl));
+        sc = 1.0f;
+      }
+      if (k0 + TK - 1 > r0 || k0 <= r0 + WQ - 1 - W || k0 + TK > S) {
+#pragma unroll
+        for (int i = 0; i < TK / 2; ++i) {
+          const int kp = k0 + 8 * (i / 4) + 2 * quad + (i & 1);
+          const int qp = (i & 2) ? qp1 : qp0;
+          if (!(kp <= qp && kp > qp - W && kp < S)) s[i] = -INFINITY;
+        }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      const float n0 = fmaxf(m0, quad_max(mx0) * sc);
+      const float n1 = fmaxf(m1, quad_max(mx1) * sc);
+      const float b0 = n0 == -INFINITY ? 0.0f : n0;   // a fully masked row
+      const float b1 = n1 == -INFINITY ? 0.0f : n1;
+      const float c0 = ex2(m0 - b0), c1 = ex2(m1 - b1);
+      m0 = n0;
+      m1 = n1;
+      float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j) {
+        s[4 * j] = ex2(fmaf(s[4 * j], sc, -b0));
+        s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], sc, -b0));
+        s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], sc, -b1));
+        s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], sc, -b1));
+        sum0 += s[4 * j] + s[4 * j + 1];
+        sum1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+      l0 = l0 * c0 + sum0;
+      l1 = l1 * c1 + sum1;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j] *= c0;
+        o[4 * j + 1] *= c0;
+        o[4 * j + 2] *= c1;
+        o[4 * j + 3] *= c1;
+      }
+      // P as the A fragment of k16 step kk: the accumulator's columns
+      // 16 kk .. 16 kk + 15 are its registers 8 kk .. 8 kk + 7
+      uint32_t p[TK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+      // O += P V: V is [key][hd], MN-major; a k16 step is 16 rows
+      fence_regs(o);
+      wgmma_fence();
+      const uint64_t vdesc = make_desc(base + L::V + st * L::TILE, L::ATOM,
+                                       L::ATOM, L::MODE);
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        wgmma_rs(o, p[kk], vdesc + ((16 * L::ROW * kk) >> 4));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * st);
+  }
+
+  // out = o / max(l, 1e-30) in bf16, staged in shared memory with its
+  // 16-byte chunks rotated by row (no bank conflicts), then 16-byte stores
+  constexpr int CH = HD / 8;                      // 16-byte chunks per row
+  const float d0 = fmaxf(quad_sum(l0), 1e-30f);
+  const float d1 = fmaxf(quad_sum(l1), 1e-30f);
+  uint8_t* stage = smem + L::O + wg * WQ * L::ROW;
+  const int ra = row, rb = row + 8;
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    *reinterpret_cast<uint32_t*>(stage + ra * L::ROW + ((j ^ (ra % CH)) * 16)
+                                 + 4 * quad) =
+        pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
+    *reinterpret_cast<uint32_t*>(stage + rb * L::ROW + ((j ^ (rb % CH)) * 16)
+                                 + 4 * quad) =
+        pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+  }
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  const int64_t q_row = static_cast<int64_t>(H) * HD;
+  for (int e = tid % 128; e < WQ * CH; e += 128) {
+    const int r = e / CH, c = e % CH;
+    const int qp = r0 + r;
+    if (qp >= S) continue;
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        stage + r * L::ROW + ((c ^ (r % CH)) * 16));
+    *reinterpret_cast<uint4*>(out + (static_cast<int64_t>(b) * S + qp) * q_row
+                              + h * HD + c * 8) = val;
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (CUDA 12.5 or later)
+// so that the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// (B, S, heads * HD) bf16, box (rows, HD) swizzled as a row of HD * 2 bytes
+// (HD 64 or 16)
+bool encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+            int HD, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * HD,
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * 2 * dims[1]};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(HD),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            HD == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* out, int B, int S, int H, int KH, int W,
+                        float scale, float cap, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  if (!encode(&qmap, q, B, S, H, HD, TQ) ||
+      !encode(&kmap, k, B, S, KH, HD, TK) ||
+      !encode(&vmap, v, B, S, KH, HD, TK))
+    return cudaErrorInvalidValue;
+  const int smem = Smem<HD>::BYTES + 1024;          // + alignment slack
+  cudaError_t err = cudaFuncSetAttribute(
+      swa_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t ctas = static_cast<int64_t>(B) * H * ((S + TQ - 1) / TQ);
+  if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
+  swa_wgmma<HD><<<static_cast<unsigned>(ctas), NTW, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, H, KH, W,
+      scale * LOG2E, cap);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16 (q, k, v and out share it). hd in {16, 64} (the
-// reduced and the full hymba); H % KH == 0; W >= 1; cap <= 0: no softcap.
+// dtype: 0 = fp32 (CUDA cores), 1 = bf16 (wgmma + TMA); q, k, v and out
+// share it. hd in {16, 64} (the reduced and the full hymba); H % KH == 0;
+// W >= 1; cap <= 0: no softcap. bf16 pointers must be 16-byte aligned.
 extern "C" int repro_swa(const void* q, const void* k, const void* v,
                          void* out, int dtype, int B, int S, int H, int KH,
                          int hd, int W, float scale, float cap, int device,
                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || W < 1)
+  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || W < 1 ||
+      (hd != 16 && hd != 64) || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = hd == 64;
   if (dtype == 0)
-    err = dispatch_hd<float>(hd, q, k, v, out, B, S, H, KH, W, scale, cap, s);
-  else if (dtype == 1)
-    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, S, H, KH, W, scale,
-                                     cap, s);
+    err = wide ? launch_fp32<64>(q, k, v, out, B, S, H, KH, W, scale, cap, s)
+               : launch_fp32<16>(q, k, v, out, B, S, H, KH, W, scale, cap, s);
   else
-    err = cudaErrorInvalidValue;
+    err = wide ? launch_bf16<64>(q, k, v, out, B, S, H, KH, W, scale, cap, s)
+               : launch_bf16<16>(q, k, v, out, B, S, H, KH, W, scale, cap, s);
   return static_cast<int>(err);
 }

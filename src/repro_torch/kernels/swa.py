@@ -5,19 +5,25 @@ windowed ``layers.flash_attention`` of the reference: query i attends keys
 j with i - window < j <= i. q (B,S,H,hd), k/v (B,S,KH,hd) -> (B,S,H,hd) in
 q's dtype; scores, softmax and the weighted sum in fp32.
 
-``swa`` is the wrapper of the hand-written CUDA kernel ``csrc/swa.cu``,
-which replaces the TPU kernel ``_swa_kernel`` (src/repro/kernels/swa.py:27).
+``swa`` is the wrapper of the hand-written CUDA kernels of ``csrc/swa.cu``,
+which replace the TPU kernel ``_swa_kernel`` (src/repro/kernels/swa.py:27).
 Bound on the H100: 4 * hd operations per (query, key) pair of the band
 against one read of q, k, v and one write of the output, so at hymba's
-prefill shape the operations bound it; the kernel walks only the band's
-key tiles per 64-query block, on the CUDA cores in fp32 (see the
-source's note).
+prefill shape the operations bound it. Which kernel runs is set by the
+dtype alone:
+
+- bf16 (the serving path): ``swa_wgmma``, on the tensor cores. K/V tiles
+  by TMA, S = Q K^T and O += P V by ``wgmma`` with fp32 accumulators, the
+  online softmax in fp32, P rounded to bf16 for the second product. Its
+  tensor maps need 16-byte aligned q, k, v; the wrapper copies a tensor
+  that is not.
+- fp32 (the model-level checks): ``swa_fp32``, fp32 on the CUDA cores.
 
 ``attention_plain`` is the plain PyTorch version: dense masked attention
 in fp32 (the reference's ``_direct_attention``), which ``swa_plain`` runs
 with a window and ``layers.direct_attention`` runs for every other
 attention of the port. The wrapper takes the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
+tensors; for CUDA tensors it launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64)         # the reduced and the full hymba
-MAX_GRID_Y = 65_535          # B * H rides on the grid's y dimension
+MAX_GRID_Y = 65_535          # fp32: B * H rides on the grid's y dimension
 
 
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -78,6 +84,12 @@ def _check(q, k, v, window):
         raise ValueError(f"swa takes window >= 1, got {window}")
 
 
+def _aligned(t):
+    """``t``, or a copy of it whose data starts on a 16-byte boundary (a
+    contiguous view at an odd offset of its storage), as TMA needs."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def swa(q, k, v, *, window: int, softcap: float = 0.0):
     """Sliding-window attention: the CUDA kernel for CUDA tensors,
     ``swa_plain`` for CPU tensors."""
@@ -96,10 +108,10 @@ def swa(q, k, v, *, window: int, softcap: float = 0.0):
     kh = k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"swa kernel takes head_dim in {HEAD_DIMS}, got {hd}")
-    if b * h > MAX_GRID_Y:
+    if q.dtype == torch.float32 and b * h > MAX_GRID_Y:
         raise ValueError(f"swa kernel takes B * H <= {MAX_GRID_Y}, got "
                          f"{b * h}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

@@ -171,6 +171,35 @@ def bf16_ulp(x) -> float:
     return 2.0 ** (np.floor(np.log2(m)) - 7)
 
 
+# Per-row tolerance of swa, in bf16 ulps of the row's max|ref|. The bf16
+# kernel rounds P to bf16 before P V (2^-9 relative per weight); a row with
+# few keys does not average that out, and where its values cancel it can
+# move the output by more than half an ulp before the output's own
+# rounding.
+ROW_ULPS = {torch.bfloat16: 2.0, torch.float32: 1.0}
+
+
+def row_ulps(out, ref):
+    """Per (b, query, head) row: max |out - ref| in bf16 ulps of the row's
+    max|ref|, (B, S, H)."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    peak = ref.float().abs().amax(-1).clamp_min(2.0 ** -126)
+    return err / torch.exp2(torch.floor(torch.log2(peak)) - 7)
+
+
+def assert_swa_close(out, ref):
+    """Globally within one bf16 ulp of max|ref|, and every row within
+    ROW_ULPS bf16 ulps of its own max|ref|: a late row with |out| ~ 0.05
+    wrong by 30 % would pass the global check alone."""
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= bf16_ulp(ref)
+    rows = row_ulps(out, ref)
+    bad = rows > ROW_ULPS[out.dtype]
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} rows above {ROW_ULPS[out.dtype]} bf16 ulps of "
+        f"their max|ref|, worst {float(rows.max())}")
+
+
 def seeded(shape, seed, dev):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
@@ -193,17 +222,40 @@ class TestServingKernels:
     ])
     def test_swa(self, b, s, h, kh, hd, w, cap):
         """bf16 output from fp32 accumulation on both sides: max abs err
-        within one bf16 ulp of max|out|."""
+        within one bf16 ulp of max|out|, and every row within two bf16
+        ulps of its own max (the kernel rounds P to bf16)."""
+        self._check_swa(b, s, h, kh, hd, w, cap, torch.bfloat16)
+
+    @pytest.mark.parametrize("b,s,h,kh,hd,w,cap", [
+        (2, 4096, 25, 5, 64, 2048, 0.0),
+        (2, 1000, 6, 3, 64, 300, 0.0),
+        (1, 600, 8, 2, 64, 200, 5.0),
+        (2, 300, 4, 1, 16, 256, 0.0),
+    ])
+    def test_swa_fp32(self, b, s, h, kh, hd, w, cap):
+        """The fp32 kernel (CUDA cores) under the same two checks."""
+        self._check_swa(b, s, h, kh, hd, w, cap, torch.float32)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("w", [63, 64, 65, 128, 4096])
+    @pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129])
+    def test_swa_tile_edges(self, s, w, dtype):
+        """S and W on, one below and one past the 64-key tile and the
+        128-query block."""
+        self._check_swa(2, s, 6, 2, 64, w, 0.0, dtype)
+
+    @staticmethod
+    def _check_swa(b, s, h, kh, hd, w, cap, dtype):
         dev = cuda_device()
-        q = seeded((b, s, h, hd), 1, dev).bfloat16() * (8.0 if cap else 1.0)
-        k = seeded((b, s, kh, hd), 2, dev).bfloat16()
-        v = seeded((b, s, kh, hd), 3, dev).bfloat16()
+        q = seeded((b, s, h, hd), 1, dev).to(dtype) * (8.0 if cap else 1.0)
+        k = seeded((b, s, kh, hd), 2, dev).to(dtype)
+        v = seeded((b, s, kh, hd), 3, dev).to(dtype)
         before = swa.swa.launches
         out = swa.swa(q, k, v, window=w, softcap=cap)
         assert swa.swa.launches == before + 1
         ref = swa.swa_plain(q, k, v, window=w, softcap=cap)
-        err = float((out.float() - ref.float()).abs().max())
-        assert out.dtype == torch.bfloat16 and err <= bf16_ulp(ref)
+        assert out.dtype == dtype
+        assert_swa_close(out, ref)
 
     @pytest.mark.parametrize("b,h,t,c,chunk,clip,with_s0,dtype", [
         (1, 64, 4096, 64, 128, False, False, torch.bfloat16),

@@ -109,3 +109,17 @@ def test_wrapper_rejects_bad_arguments(bad):
     q, k, v = port(*qkv(1, 8, 4, bad.get("kv_heads", 2), 16, seed=6))
     with pytest.raises(ValueError):
         swa.swa(q, k, v, window=bad["window"])
+
+
+def test_aligned_copies_only_a_misaligned_view():
+    """The bf16 kernel's tensor maps need 16-byte aligned data: the wrapper
+    copies a contiguous view that starts at an odd offset of its storage
+    and passes every other tensor through untouched."""
+    flat = torch.arange(64, dtype=torch.bfloat16)
+    whole = flat[:48].view(3, 16)
+    assert swa._aligned(whole) is whole
+    shifted = flat[1:49].view(3, 16)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    copy = swa._aligned(shifted)
+    assert copy.data_ptr() % 16 == 0
+    assert torch.equal(copy, shifted)
