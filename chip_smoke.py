@@ -12,6 +12,9 @@ Phases, each fatal on failure:
      its plain PyTorch version on the card, with its time (CUDA events,
      median), its plain version's time, a library yardstick where one
      PyTorch call computes the same function, and its bound on the H100;
+     wkv6 also with the device time of each of its three kernels, both
+     terms of its bound, the former kernel's fp32 operation term and its
+     compiler report;
   3. the wireless engine at Monte-Carlo scale (B=64, N=10,000, K=128),
      checked for its invariants and against the same engine on the CPU;
   4. the pairing policies and joint selection (B=64, N=10,000, K=16):
@@ -39,7 +42,8 @@ kernel's launch count to 0 just before and read it just after.
 
 With ``--profile`` it then times the stages of one more FL round and
 traces another with ``torch.profiler``, and traces one prefill and one
-decode step in each of phases 9 and 10. It prints a ``{"kernels": [...]}``
+decode step in each of phases 9 and 10 (naming the swa and wkv6 kernels'
+calls and device time within the prefill). It prints a ``{"kernels": [...]}``
 line (launches of the four FL kernels from phase 8, of swa from phase 9,
 of wkv6 from phase 10), the
 ``nvidia-smi`` name and power limit, and last
@@ -67,6 +71,7 @@ OUT = ROOT / "chiprun_out"
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_BF16_S = 989e12     # dense tensor-core rate
+PEAK_TF32_S = 495e12     # dense tensor-core rate
 
 PAIR_TOL = dict(rtol=1e-6, atol=1e-9)
 # both sides accumulate in fp32 from the same inputs, so bf16 takes a
@@ -117,10 +122,10 @@ def time_ms(torch, fn, *, reps: int = 20, runs: int = 7) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, *, reps: int = 10) -> float:
-    """Mean device time of one call of ``fn``: the kernels it launched, as
-    ``torch.profiler`` records them, over ``reps`` calls (host time, such
-    as a ctypes wrapper's, is not in it)."""
+def kernel_times(torch, fn, *, reps: int = 10) -> dict:
+    """Mean device time of one call of ``fn`` by kernel name (ms): the
+    kernels it launched, as ``torch.profiler`` records them, over ``reps``
+    calls (host time, such as a ctypes wrapper's, is not in it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -136,9 +141,26 @@ def device_ms(torch, fn, *, reps: int = 10) -> float:
         kern = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         if kern:
-            return sum(e.self_device_time_total for e in kern) / 1e3 / reps
+            return {e.key: e.self_device_time_total / 1e3 / reps
+                    for e in kern}
     raise AssertionError("torch.profiler recorded no device kernel in three "
                          "sessions")
+
+
+def device_ms(torch, fn, *, reps: int = 10) -> float:
+    """Mean device time of one call of ``fn``, all its kernels."""
+    return sum(kernel_times(torch, fn, reps=reps).values())
+
+
+def ptxas_report(log_text: str) -> dict:
+    """The compiler's register and spill lines by kernel (mangled name)."""
+    out, entry = {}, "?"
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            out.setdefault(entry, []).append(line.strip())
+    return out
 
 
 def max_err(torch, out, ref) -> float:
@@ -485,7 +507,8 @@ def phase_wkv6(torch, dev, kinfo):
              "short T, zero s0": ((2, 64, 77, 64), 128, dict(s0=False)),
              "T off the chunk, chunk 64": ((1, 8, 1000, 64), 64, {}),
              "C 16 (reduced), fp32": ((2, 8, 300, 16), 128,
-                                      dict(dtype=torch.float32))}
+                                      dict(dtype=torch.float32)),
+             "one head, T 4096": ((1, 1, 4096, 64), 128, {})}
     errs = {}
     for name, ((b, h, t, c), chunk, kw) in cases.items():
         args = wkv6_inputs(torch, dev, b, h, t, c, seed=t + c, **kw)
@@ -505,19 +528,34 @@ def phase_wkv6(torch, dev, kinfo):
     b, h, t, c = 1, 64, 4096, 64
     args = wkv6_inputs(torch, dev, b, h, t, c, seed=5, s0=False)
     n = b * h * t * c
-    b_ms, b_by = bound(3 * n * 2 + 2 * n * 4 + h * c * 4 + 2 * b * h * c * c
-                       * 4, 5 * c * c * t * h * b)
+    bytes_moved = 3 * n * 2 + 2 * n * 4 + h * c * 4 + 2 * b * h * c * c * 4
+    ops = 5 * c * c * t * h * b          # the recurrence's count
+    # each product three times over on the TF32 tensor cores (3xTF32)
+    b_ms, b_by = bound(bytes_moved, 3 * ops, PEAK_TF32_S)
+    call = lambda: WK.wkv6(*args, chunk=128)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mib = torch.cuda.memory_allocated(dev) / 2 ** 20
+    call()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20 - base_mib
+    by_kernel = kernel_times(torch, call, reps=5)
     kinfo["wkv6"] = dict(
         max_abs_err=errs["rwkv6 prefill"]["out_err"],
         s_T_max_abs_err=errs["rwkv6 prefill"]["s_T_err"],
-        ms=time_ms(torch, lambda: WK.wkv6(*args, chunk=128), reps=5, runs=5),
-        device_ms=device_ms(torch, lambda: WK.wkv6(*args, chunk=128),
-                            reps=5),
+        ms=time_ms(torch, call, reps=5, runs=5),
+        device_ms=sum(by_kernel.values()), device_ms_by_kernel=by_kernel,
         plain_ms=time_ms(torch, lambda: WK.wkv6_plain(*args, chunk=128),
                          reps=2, runs=3),
         library_ms=None, library_device_ms=None, bound_ms=b_ms,
-        bound_by=b_by,
-        bound_peak="67 TFLOP/s fp32, 3.35 TB/s",
+        bound_by=b_by, bound_bytes_ms=bytes_moved / PEAK_BYTES_S * 1e3,
+        bound_ops_ms=3 * ops / PEAK_TF32_S * 1e3,
+        bound_peak="495 TFLOP/s TF32 x 3 products, 3.35 TB/s",
+        # the former kernel's operation term, for comparison with its row
+        bound_fp32_ops_ms=ops / PEAK_FP32_S * 1e3,
+        peak_mem_above_inputs_mib=peak_mib,
+        ptxas={k: v for k, v in RESULT.get("ptxas", {}).items()
+               if "wkv6" in k},
         tolerance="1e-4 of max|out| (and of max|s_T|)",
         shape=[b, h, t, c], chunk=128, checks=errs)
     log(f"wkv6 {(b, h, t, c)} chunk 128: {kinfo['wkv6']}")
@@ -926,9 +964,10 @@ def rel_err(torch, a, b) -> float:
                  / b.float().abs().max())
 
 
-def profile_call(torch, fn) -> dict:
+def profile_call(torch, fn, names=()) -> dict:
     """One call of ``fn`` under ``torch.profiler``: wall time, the device's
-    kernel time and busy share, and the kernels that took most of it."""
+    kernel time and busy share, the kernels that took most of it, and the
+    calls and time of every kernel whose name holds one of ``names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -947,7 +986,10 @@ def profile_call(torch, fn) -> dict:
                 kernel_launches=sum(e.count for e in kern),
                 top_kernels=[dict(name=e.key[:90], count=e.count,
                                   device_ms=e.self_device_time_total / 1e3)
-                             for e in top])
+                             for e in top],
+                named_kernels={e.key[:90]: dict(
+                    count=e.count, device_ms=e.self_device_time_total / 1e3)
+                    for e in kern if any(n in e.key for n in names)})
 
 
 def release(torch):
@@ -1000,7 +1042,7 @@ def phase_hymba(torch, dev, profile=False):
     if profile:
         RESULT["hymba_1_5b_profile"] = dict(
             prefill=profile_call(torch, lambda: prefill(
-                model, {"tokens": prompt})),
+                model, {"tokens": prompt}), names=("swa",)),
             decode_step=profile_call(torch, lambda: zoo.make_serve_step(cfg)(
                 model, zoo.init_cache(cfg, b, s + gen, device=dev),
                 prompt[:, 0], 0)))
@@ -1089,7 +1131,7 @@ def phase_rwkv(torch, dev, profile=False):
     if profile:
         RESULT["rwkv6_7b_profile"] = dict(
             prefill=profile_call(torch, lambda: prefill(
-                model, {"tokens": toks})),
+                model, {"tokens": toks}), names=("wkv6",)),
             decode_step=profile_call(torch, lambda: zoo.make_serve_step(cfg)(
                 model, zoo.init_cache(cfg, 1, 1, device=dev), toks[:, 0],
                 0)))
@@ -1173,12 +1215,10 @@ def main() -> int:
     RESULT["build_s"] = time.perf_counter() - t0
     log(f"kernels built in {RESULT['build_s']:.2f} s -> "
         f"{build.BuildInfo.path.name}")
-    entry = "?"
-    for line in build.BuildInfo.log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif "registers" in line or "spill" in line:
-            log(f"ptxas: {entry}: {line.strip()}")
+    RESULT["ptxas"] = ptxas_report(build.BuildInfo.log)
+    for entry, lines in RESULT["ptxas"].items():
+        for line in lines:
+            log(f"ptxas: {entry}: {line}")
 
     kinfo: dict = {}
     phase_probe(torch, dev, kinfo)

@@ -51,8 +51,8 @@ SIGNATURES = {
                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P),
     "repro_swa": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                   _P),
-    "repro_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                   _I, _P),
+    "repro_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                   _I, _I, _I, _I, _P),
 }
 
 
@@ -142,6 +142,14 @@ def load() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def aligned(t):
+    """``t`` contiguous, or a copy of it whose data starts on a 16-byte
+    boundary (a contiguous view at an odd offset of its storage), as TMA
+    and cp.async need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def refuse_grad(what: str, *tensors) -> None:

@@ -84,12 +84,6 @@ def _check(q, k, v, window):
         raise ValueError(f"swa takes window >= 1, got {window}")
 
 
-def _aligned(t):
-    """``t``, or a copy of it whose data starts on a 16-byte boundary (a
-    contiguous view at an odd offset of its storage), as TMA needs."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def swa(q, k, v, *, window: int, softcap: float = 0.0):
     """Sliding-window attention: the CUDA kernel for CUDA tensors,
     ``swa_plain`` for CPU tensors."""
@@ -111,7 +105,7 @@ def swa(q, k, v, *, window: int, softcap: float = 0.0):
     if q.dtype == torch.float32 and b * h > MAX_GRID_Y:
         raise ValueError(f"swa kernel takes B * H <= {MAX_GRID_Y}, got "
                          f"{b * h}")
-    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
+    q, k, v = (build.aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

@@ -263,6 +263,19 @@ class TestServingKernels:
         (2, 64, 77, 64, 128, False, True, torch.bfloat16),
         (1, 8, 1000, 64, 64, False, True, torch.bfloat16),
         (2, 8, 300, 16, 128, False, True, torch.float32),
+        # the kernels' edges: one (b, h) whose chunks alone fill the card;
+        # T around the 16-step sub-chunk and the 64-step chunk; T off the
+        # caller's chunk; the clip with s0 in fp32 and at chunk 64
+        (1, 1, 4096, 64, 128, False, True, torch.bfloat16),
+        (2, 4, 1, 64, 128, False, True, torch.bfloat16),
+        (2, 4, 15, 64, 128, False, True, torch.float32),
+        (2, 4, 16, 16, 128, False, True, torch.bfloat16),
+        (2, 4, 17, 64, 128, True, True, torch.bfloat16),
+        (2, 4, 63, 16, 128, False, False, torch.float32),
+        (2, 4, 65, 64, 128, False, True, torch.bfloat16),
+        (1, 4, 200, 64, 48, False, True, torch.float32),
+        (1, 4, 300, 64, 128, True, True, torch.float32),
+        (1, 4, 1000, 64, 64, True, True, torch.bfloat16),
     ])
     def test_wkv6(self, b, h, t, c, chunk, clip, with_s0, dtype):
         """out and s_T in fp32: max abs err <= 1e-4 of the max magnitude."""
@@ -281,6 +294,19 @@ class TestServingKernels:
         for got, want in ((out, ref), (s_t, ref_s)):
             err = float((got - want).abs().max())
             assert err <= 1e-4 * float(want.abs().max())
+
+    def test_wkv6_refuses_a_scratch_of_another_chunk(self, monkeypatch):
+        """The C entry takes the scratch's chunk count and refuses it unless
+        it is ceil(T / L) of the kernels' own L."""
+        dev = cuda_device()
+        args = (seeded((1, 2, 100, 16), 1, dev), seeded((1, 2, 100, 16), 2,
+                                                        dev),
+                seeded((1, 2, 100, 16), 3, dev),
+                -torch.ones(1, 2, 100, 16, device=dev),
+                torch.zeros(2, 16, device=dev))
+        monkeypatch.setattr(wkv6, "KERNEL_CHUNK", wkv6.KERNEL_CHUNK // 2)
+        with pytest.raises(RuntimeError, match="wkv6: CUDA error"):
+            wkv6.wkv6(*args, chunk=64)
 
     @pytest.mark.parametrize("arch,kernel", [("hymba_1_5b", "swa"),
                                              ("rwkv6_7b", "wkv6")])

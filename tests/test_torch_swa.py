@@ -18,7 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import layers as jlayers
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops, swa
+from repro_torch.kernels import build, ops, swa
 from repro_torch.models import layers as L
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -112,14 +112,15 @@ def test_wrapper_rejects_bad_arguments(bad):
 
 
 def test_aligned_copies_only_a_misaligned_view():
-    """The bf16 kernel's tensor maps need 16-byte aligned data: the wrapper
-    copies a contiguous view that starts at an odd offset of its storage
-    and passes every other tensor through untouched."""
+    """The bf16 swa kernel's tensor maps (and wkv6's cp.async loads) need
+    16-byte aligned data: the wrappers copy a contiguous view that starts
+    at an odd offset of its storage and pass every other contiguous tensor
+    through untouched."""
     flat = torch.arange(64, dtype=torch.bfloat16)
     whole = flat[:48].view(3, 16)
-    assert swa._aligned(whole) is whole
+    assert build.aligned(whole) is whole
     shifted = flat[1:49].view(3, 16)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
-    copy = swa._aligned(shifted)
+    copy = build.aligned(shifted)
     assert copy.data_ptr() % 16 == 0
     assert torch.equal(copy, shifted)
