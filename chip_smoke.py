@@ -23,10 +23,19 @@ Phases, each fatal on failure:
   5. the Monte-Carlo rollout (``montecarlo_rounds``, R=20, S=32, N=64) for
      five policies under strong_weak and hungarian, card against CPU;
   6. the FL round on a small model, card against CPU (the reference);
+  6a. the budget eviction loop (B=64, N=64, K=5, half the no-budget round
+     time) for all four pairings x both selections, card against CPU, and
+     the pairscore kernel at the loop's shapes and on padding pairs;
+  6b. ``montecarlo_rounds(policy="age_noma_budget")`` (R=20, S=32, N=64)
+     under strong_weak and hungarian, and at n_cells=3 with a drifting
+     ``cell_seq``, card against CPU; the small FL run (phase 6) also under
+     age_noma_budget and at n_cells=3;
   7. the slice-1 main path: ``FLServer`` at the full width of smollm-135M
      in bf16, 50 clients, 10 slots, 3 rounds each evaluated;
   8. the same FL round under ``pairing="hungarian", selection="joint"``,
-     3 rounds;
+     3 rounds; then under ``policy="age_noma_budget"`` (budget calibrated
+     on the first round), 3 rounds, and at n_cells=3, 2 rounds, with
+     fedagg timed over that path's (30, P) delta buffer;
   9. the serving path of hymba_1_5b at full width in bf16: ``run_serve``
      with B=2, a 4096-token prompt (longer than the 2048 window) and 16
      greedy decode steps; the last-token logits of the prefill against the
@@ -37,15 +46,18 @@ Phases, each fatal on failure:
      tokens; at T=256 the prefill's per-layer states and last logits
      against 256 decode steps from an empty cache, reported in bf16 and
      held in fp32.
-Phases 7, 8, 9 (run_serve) and 10 (the T=4096 prefill) each set every
-kernel's launch count to 0 just before and read it just after.
+Phases 6a, 7, 8 (each FL path), 9 (run_serve) and 10 (the T=4096
+prefill) each set every kernel's launch count to 0 just before and read
+it just after.
 
 With ``--profile`` it then times the stages of one more FL round and
 traces another with ``torch.profiler``, and traces one prefill and one
 decode step in each of phases 9 and 10 (naming the swa and wkv6 kernels'
 calls and device time within the prefill). It prints a ``{"kernels": [...]}``
-line (launches of the four FL kernels from phase 8, of swa from phase 9,
-of wkv6 from phase 10), the
+line (launches of the four FL kernels from phase 8's hungarian + joint
+path, of swa from phase 9, of wkv6 from phase 10; each entry also has
+the launches of the budget FL path and of the multi-cell budget FL path),
+the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json. Without a CUDA card, or without the
@@ -792,6 +804,235 @@ def phase_montecarlo(torch, dev):
     RESULT["montecarlo"].update(res)
 
 
+def same_or_tied(torch, out, ref, pairing, t_budget=None):
+    """Card against CPU on a budget or multi-cell schedule: masks and pair
+    tables exact, rates and t_round rtol 1e-5. Under hungarian a strong
+    user's completion does not depend on its partner, so matchings tie in
+    exact arithmetic and the last bit of the fp32 table (CUDA's log1pf
+    against the CPU's) picks one: a row may pair differently (held by
+    t_round to rtol 1e-6) and, in the budget loop, evict differently from
+    there on (at most 2 rows, each meeting its budget or down to one
+    client on both sides). Returns (rows pairing differently, rows
+    selecting differently)."""
+    masks = torch.ones(out.t_round.shape, dtype=torch.bool)
+    for f in ("selected", "evicted"):
+        masks &= (getattr(out, f).cpu() == getattr(ref, f)).all(1)
+    if not bool(masks.all()):
+        if pairing != "hungarian" or t_budget is None or \
+                int((~masks).sum()) > 2:
+            raise AssertionError(f"{pairing}: selected/evicted differ card "
+                                 f"vs CPU in {int((~masks).sum())} rows")
+        tb = torch.as_tensor(t_budget)[~masks]
+        for o in (out, ref):
+            ok = (o.t_round.cpu()[~masks] <= tb) | (
+                o.selected.cpu()[~masks].sum(1) <= 1)
+            if not bool(ok.all()):
+                raise AssertionError(f"{pairing}: a row selecting "
+                                     f"differently misses its budget")
+    same = ((out.pair_strong.cpu() == ref.pair_strong)
+            & (out.pair_weak.cpu() == ref.pair_weak)).all(1) & masks
+    if pairing != "hungarian" and not bool(same.all()):
+        raise AssertionError(f"{pairing}: pair tables differ card vs CPU")
+    tied = masks & ~same
+    torch.testing.assert_close(out.t_round.cpu()[tied], ref.t_round[tied],
+                               rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(out.t_round.cpu()[masks], ref.t_round[masks],
+                               rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(out.rates.cpu()[same], ref.rates[same],
+                               rtol=1e-5, atol=0.0)
+    return int(tied.sum()), int((~masks).sum())
+
+
+def host_ms(torch, fn, reps=5):
+    """Median wall time of ``fn`` to a synchronise (ms)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def phase_budget_engine(torch, dev):
+    """The budget eviction loop at B=64, N=64, default NOMAConfig (K=5, 10
+    slots), a budget of half each row's no-budget round time, for all four
+    pairings x both selections, card against CPU; the pairscore kernel at
+    the loop's shapes (B x P pairs, the hungarian table B x s2 x s2), and
+    on padding pairs (gain 0)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import FLConfig, NOMAConfig
+    from repro_torch.core.engine import WirelessEngine
+    from repro_torch.kernels import pairscore as P
+    b, n = 64, 64
+    ncfg = NOMAConfig()
+    batch = make_batch(np.random.default_rng(5), b, n, ncfg)
+    res = {}
+    for pairing, selection in itertools.product(
+            ("strong_weak", "adjacent", "greedy_matching", "hungarian"),
+            ("greedy_set", "joint")):
+        name = f"{pairing}/{selection}"
+        kw = dict(pairing=pairing, selection=selection)
+        card = WirelessEngine(ncfg, FLConfig(), device=dev, **kw)
+        cpu = WirelessEngine(ncfg, FLConfig(), device="cpu", **kw)
+        free = card.schedule_batch(*batch, 1e6)
+        tb = (free.t_round * 0.5).cpu().numpy()
+        kernels.reset_launch_counts()
+        out = card.schedule_batch(*batch, 1e6, t_budget=tb)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        ref = cpu.schedule_batch(*batch, 1e6, t_budget=tb)
+        tied, split = same_or_tied(torch, out, ref, pairing, tb)
+        n_ev = out.evicted.sum(1)
+        iters = int(n_ev.max())
+        if not float((n_ev > 0).float().mean()) > 0.5:
+            raise AssertionError(f"budget {name}: evicts in too few rows "
+                                 f"{n_ev.tolist()}")
+        if name == "strong_weak/greedy_set" and \
+                counts["pairscore"] != 1 + iters:
+            raise AssertionError(f"budget {name}: pairscore launched "
+                                 f"{counts['pairscore']} times, not 1 + "
+                                 f"{iters} loop iterations")
+        res[name] = dict(
+            batch_ms=host_ms(torch, lambda: card.schedule_batch(
+                *batch, 1e6, t_budget=tb)),
+            no_budget_batch_ms=host_ms(torch, lambda: card.schedule_batch(
+                *batch, 1e6)),
+            iterations=iters, mean_evicted=float(n_ev.float().mean()),
+            rows_evicting=int((n_ev > 0).sum()),
+            rows_pairing_differently_vs_cpu=tied,
+            rows_selecting_differently_vs_cpu=split, launches=counts)
+        log(f"budget engine {name} B={b} N={n} K=5: card == CPU; "
+            f"{res[name]}")
+    # the pairscore kernel at the loop's shapes
+    kw = dict(n0b=ncfg.noise_density * ncfg.bandwidth_hz,
+              pmax=ncfg.max_power_w, bw=ncfg.bandwidth_hz)
+    shapes = {}
+    for label, shape in (("loop B x P", (b, 5)),
+                         ("hungarian table B x s2 x s2", (b, 10, 10))):
+        g_i, g_j = pair_inputs(torch, dev, shape, 17)
+        out, ref = P.pairscore(g_i, g_j, **kw), P.pair_math(g_i, g_j, **kw)
+        torch.cuda.synchronize()
+        for o, r in zip(out, ref):
+            torch.testing.assert_close(o, r, **PAIR_TOL)
+        m = g_i.numel()
+        b_ms, b_by = bound(24 * m, PAIR_OPS * m)
+        shapes[label] = dict(
+            shape=list(shape), max_abs_err=max_err(torch, out, ref),
+            ms=time_ms(torch, lambda: P.pairscore(g_i, g_j, **kw)),
+            device_ms=device_ms(torch, lambda: P.pairscore(g_i, g_j, **kw)),
+            plain_ms=time_ms(torch, lambda: P.pair_math(g_i, g_j, **kw)),
+            bound_ms=b_ms, bound_by=b_by)
+    # padding lanes: the strong or the weak gain 0, or both
+    g_i = torch.tensor([1e-9, 0.0, 3e-12, 2e-12], device=dev)
+    g_j = torch.tensor([0.0, 0.0, 0.0, 2e-12], device=dev)
+    out, ref = P.pairscore(g_i, g_j, **kw), P.pair_math(g_i, g_j, **kw)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(o).all()) for o in out) or bool(
+            (out[3][:3] != 0).any()) or bool(out[2][1] != 0):
+        raise AssertionError(f"pairscore on padding pairs: {out}")
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, **PAIR_TOL)
+    log(f"pairscore at the budget loop's shapes: {shapes}; padding pairs "
+        f"finite, rate 0 for gain 0")
+    RESULT["budget_engine"] = dict(B=b, N=n, K=5, budget="0.5 x no-budget "
+                                   "t_round", pairscore_shapes=shapes, **res)
+
+
+def cell_positions(rng, s, n, r, ncfg, n_cells):
+    """(R, S, N) serving cells and distances of clients placed like the
+    multi-cell scenario (home cell, annulus offset) that then walk at
+    1-3 m/s for 10 s a round, so some change cells."""
+    import numpy as np
+    from repro_torch.core import noma
+    from repro_torch.sim import topology
+    bs = topology.bs_layout(n_cells, "hex", ncfg.cell_radius_m)
+    pos = bs[rng.integers(0, n_cells, (s, n))] + np.stack(
+        [noma.sample_positions(rng, n, ncfg) for _ in range(s)])
+    th = rng.uniform(0, 2 * np.pi, (s, n))
+    v = rng.uniform(1, 3, (s, n))[..., None] * np.stack(
+        [np.cos(th), np.sin(th)], -1)
+    cells, dists = zip(*(topology.nearest_cell(pos + v * 10.0 * i, bs)
+                         for i in range(r)))
+    return np.stack(cells), np.maximum(np.stack(dists), ncfg.min_radius_m)
+
+
+def phase_budget_montecarlo(torch, dev):
+    """``montecarlo_rounds(policy="age_noma_budget")`` at R=20, S=32, N=64
+    under strong_weak and hungarian, the budget 2x the mean channel-greedy
+    round time of round 0 (run_montecarlo's calibration), card against
+    CPU; then at n_cells=3 with a drifting ``cell_seq`` for age_noma and
+    age_noma_budget, handovers included."""
+    import numpy as np
+    from repro_torch.configs import FLConfig, NOMAConfig
+    from repro_torch.core.engine import WirelessEngine
+    r, s, n = 20, 32, 64
+    ncfg = NOMAConfig()
+    gains, ns, cpu_f = mc_gains(np.random.default_rng(2), r, s, n, ncfg)
+    cell_seq, dist = cell_positions(np.random.default_rng(6), s, n, r, ncfg, 3)
+    rng = np.random.default_rng(7)
+    cell_gains = (ncfg.ref_path_loss * dist ** (-ncfg.path_loss_exp)
+                  * rng.exponential(1.0, dist.shape))
+    res = {}
+    keys = ("n_selected", "n_evicted", "participation", "final_ages")
+    for n_cells, pairing in ((1, "strong_weak"), (1, "hungarian"),
+                             (3, "strong_weak")):
+        fl = FLConfig(n_cells=n_cells)
+        card = WirelessEngine(ncfg, fl, device=dev, pairing=pairing)
+        cpu = WirelessEngine(ncfg, fl, device="cpu", pairing=pairing)
+        g = gains if n_cells == 1 else cell_gains
+        extra = {} if n_cells == 1 else dict(cell_seq=cell_seq)
+        cal = card.schedule_batch(g[0], ns, cpu_f, np.ones((s, n)), 1e6,
+                                  priority=g[0], cell=cell_seq[0],
+                                  n_cells=n_cells)
+        tb = 2.0 * max(float(cal.t_round.mean()), 1e-6)
+        for policy in ("age_noma", "age_noma_budget"):
+            kw = dict(policy=policy, **extra)
+            if policy == "age_noma_budget":
+                kw["t_budget"] = tb
+            t0 = time.perf_counter()
+            out = card.montecarlo_rounds(g, ns, cpu_f, 1e6, **kw)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            ref = cpu.montecarlo_rounds(g, ns, cpu_f, 1e6, **kw)
+            name = f"C={n_cells} {pairing}/{policy}"
+            # seeds whose trajectories agree (all of them but, under
+            # hungarian's fp32 ties (same_or_tied), at most 2)
+            agree = torch.ones(s, dtype=torch.bool)
+            for key in keys + (("handovers",) if n_cells > 1 else ()):
+                per_round = key not in ("participation", "final_ages")
+                agree &= (out[key].cpu() == ref[key]).all(
+                    dim=0 if per_round else 1)
+            if int((~agree).sum()) > (2 if pairing == "hungarian" else 0):
+                raise AssertionError(f"montecarlo {name}: {int((~agree).sum())}"
+                                     f" seeds differ card vs CPU")
+            torch.testing.assert_close(out["t_round"].cpu()[:, agree],
+                                       ref["t_round"][:, agree], rtol=1e-5,
+                                       atol=0.0)
+            res[name] = dict(s=sec, drops_per_s=r * s / sec,
+                             mean_n_selected=float(
+                                 out["n_selected"].float().mean()),
+                             mean_n_evicted=float(
+                                 out["n_evicted"].float().mean()),
+                             # the loop runs until its slowest seed is done
+                             # (C=1: one eviction a live seed an iteration)
+                             mean_max_evicted_per_round=float(
+                                 out["n_evicted"].amax(1).float().mean()),
+                             mean_t_round_s=float(out["t_round"].mean()),
+                             seeds_differing_vs_cpu=int((~agree).sum()))
+            if policy == "age_noma_budget":
+                res[name]["t_budget_s"] = tb
+                if not bool((out["n_evicted"] > 0).any()):
+                    raise AssertionError(f"montecarlo {name}: no eviction")
+            if n_cells > 1:
+                res[name]["handovers_per_round"] = float(
+                    out["handovers"][1:].float().mean())
+            log(f"montecarlo {name} R={r} S={s} N={n}: card == CPU; "
+                f"{res[name]}")
+    RESULT["budget_montecarlo"] = dict(R=r, S=s, N=n, K=5, **res)
+
+
 # ---------------------------------------------------------------------------
 # phase 4-5: the FL round
 # ---------------------------------------------------------------------------
@@ -800,7 +1041,7 @@ def phase_montecarlo(torch, dev):
 SMALL = dict(d_model=32, d_ff=64, vocab_size=32)
 
 
-def small_fl(device, state, rounds=2):
+def small_fl(device, state, rounds=2, policy="age_noma", **fl_kw):
     """A 2-layer, 32-wide FL run from the initial weights ``state`` (CPU
     and CUDA generators draw different numbers from one seed)."""
     from repro_torch.configs import FLConfig, NOMAConfig, get_config
@@ -808,10 +1049,10 @@ def small_fl(device, state, rounds=2):
     from repro_torch.fl import FLServer
     cfg = dataclasses.replace(get_config("smollm_135m").reduced(), **SMALL)
     srv = FLServer(cfg, FLConfig(n_clients=8, local_batch=8, lr=0.2,
-                                 samples_per_client=(24, 48)),
+                                 samples_per_client=(24, 48), **fl_kw),
                    NOMAConfig(n_subchannels=2),
                    TaskConfig(vocab_size=32, n_topics=4, seq_len=17),
-                   eval_every=1, device=device)
+                   policy=policy, eval_every=1, device=device)
     srv.model.load_state_dict(state)
     return srv.run(rounds)
 
@@ -834,12 +1075,46 @@ def phase_small_fl(torch, dev):
             raise AssertionError(f"round time card {a} vs CPU {b}")
     log(f"small FL run: card == CPU (selections, loss rtol 1e-3); "
         f"loss {h_card.loss}")
+    # the budget policy with a budget that evicts, and three cells
+    runs = {"age_noma_budget": dict(policy="age_noma_budget",
+                                    t_budget_s=0.6 * h_cpu.round_time[0]),
+            "n_cells=3": dict(n_cells=3),
+            "n_cells=3 age_noma_budget": dict(policy="age_noma_budget",
+                                              n_cells=3)}
+    res = {}
+    for name, kw in runs.items():
+        h_cpu, h_card = (small_fl(d, state, rounds=3, **kw)
+                         for d in ("cpu", dev))
+        for key in ("n_selected", "n_evicted", "sel_per_cell"):
+            if getattr(h_card, key) != getattr(h_cpu, key):
+                raise AssertionError(f"small FL {name}: {key} card "
+                                     f"{getattr(h_card, key)} vs CPU "
+                                     f"{getattr(h_cpu, key)}")
+        if not (h_card.participation == h_cpu.participation).all():
+            raise AssertionError(f"small FL {name} selects differently")
+        for a, b in zip(h_card.loss, h_cpu.loss):
+            if not math.isclose(a, b, rel_tol=1e-3):
+                raise AssertionError(f"small FL {name} loss card {a} vs "
+                                     f"CPU {b}")
+        for a, b in zip(h_card.round_time, h_cpu.round_time):
+            if not math.isclose(a, b, rel_tol=1e-4):
+                raise AssertionError(f"small FL {name} round time card {a} "
+                                     f"vs CPU {b}")
+        res[name] = dict(n_selected=h_card.n_selected,
+                         n_evicted=h_card.n_evicted,
+                         sel_per_cell=h_card.sel_per_cell)
+    if not any(sum(r["n_evicted"]) for r in res.values()):
+        raise AssertionError(f"small FL budget runs evicted nobody: {res}")
+    RESULT["small_fl"] = res
+    log(f"small FL budget and multi-cell runs: card == CPU; {res}")
 
 
-def phase_main_path(torch, dev, label="fl", **fl_kw):
-    """FLServer at the full width of smollm-135M, FL_ROUNDS rounds each
+def phase_main_path(torch, dev, label="fl", policy="age_noma",
+                    rounds=FL_ROUNDS, **fl_kw):
+    """FLServer at the full width of smollm-135M, ``rounds`` rounds each
     evaluated, with every launch count set to 0 just before and read just
-    after. ``fl_kw`` adds FLConfig fields (the pairing, the selection)."""
+    after. ``fl_kw`` adds FLConfig fields (the pairing, the selection,
+    n_cells)."""
     from repro_torch import kernels
     from repro_torch.configs import FLConfig, NOMAConfig, get_config
     from repro_torch.data import TaskConfig
@@ -855,7 +1130,7 @@ def phase_main_path(torch, dev, label="fl", **fl_kw):
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    srv = FLServer(cfg, fl, NOMAConfig(), TaskConfig(), policy="age_noma",
+    srv = FLServer(cfg, fl, NOMAConfig(), TaskConfig(), policy=policy,
                    eval_every=1, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -870,14 +1145,24 @@ def phase_main_path(torch, dev, label="fl", **fl_kw):
         return sched
 
     srv.run_round = timed_round
-    hist = srv.run(FL_ROUNDS)
+    hist = srv.run(rounds)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
 
     n_params = sum(p.numel() for p in srv.model.parameters())
     if n_params != SMOLLM_PARAMS:
         raise AssertionError(f"model has {n_params} parameters")
-    if hist.n_selected != [10] * FL_ROUNDS:
+    budget = policy == "age_noma_budget"
+    if fl.n_cells > 1:
+        # the delta buffer holds the most clients the cells can select:
+        # fedagg sums up to that many rows
+        if any(len(c) != fl.n_cells or max(c) > 10 or sum(c) != k
+               for c, k in zip(hist.sel_per_cell, hist.n_selected)) \
+                or srv.deltas.shape[0] != min(10 * fl.n_cells, 50):
+            raise AssertionError(f"selected per cell {hist.sel_per_cell}, "
+                                 f"{srv.deltas.shape[0]} delta rows")
+    elif (any(not 1 <= k <= 10 for k in hist.n_selected) if budget
+          else hist.n_selected != [10] * rounds):
         raise AssertionError(f"selected per round {hist.n_selected}")
     if not all(math.isfinite(x) for x in hist.loss + hist.round_time):
         raise AssertionError(f"non-finite loss/round time {hist.loss}")
@@ -887,24 +1172,62 @@ def phase_main_path(torch, dev, label="fl", **fl_kw):
         # per round: two finishes (the greedy set and the refined one), each
         # one planner and one pairscore launch; the swap search scores
         # 1 + JOINT_SWAP_ITERS sets through pairscore
-        want = dict(planner=2 * FL_ROUNDS, pairscore=7 * FL_ROUNDS)
+        want = dict(planner=2 * rounds, pairscore=7 * rounds)
+    elif budget and fl.n_cells == 1:
+        # the first round's channel-greedy calibration, then per round the
+        # admitted set and one re-assembly per loop iteration (one client
+        # evicted per iteration)
+        want = dict(planner=0, pairscore=1 + sum(1 + e
+                                                 for e in hist.n_evicted))
+    elif fl.n_cells == 1:
+        want = dict(planner=0, pairscore=rounds)
     else:
-        want = dict(planner=0, pairscore=FL_ROUNDS)
+        want = {}
     if any(counts[k] != v for k, v in want.items()) \
-            or counts["fedagg"] != FL_ROUNDS or counts["probe_kernel"] != 1:
+            or counts["fedagg"] != rounds or counts["probe_kernel"] != 1:
         raise AssertionError(f"kernel launches on the {label} path: "
                              f"{counts}")
     RESULT[label] = dict(
-        pairing=fl.pairing, selection=fl.selection,
-        model=cfg.name, n_params=n_params, dtype=cfg.dtype,
-        rounds=FL_ROUNDS, n_selected=hist.n_selected, loss=hist.loss,
+        policy=policy, pairing=fl.pairing, selection=fl.selection,
+        n_cells=fl.n_cells, model=cfg.name, n_params=n_params,
+        dtype=cfg.dtype, rounds=rounds, n_selected=hist.n_selected,
+        n_evicted=hist.n_evicted, loss=hist.loss,
         accuracy=hist.accuracy, round_time_sim_s=hist.round_time,
         setup_s=setup_s, wall_s_per_round=list(round_s),
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-        launches=counts)
-    log(f"FL {label} path (smollm-135M bf16, 50 clients, 10 slots, "
-        f"{fl.pairing}/{fl.selection}): {RESULT[label]}")
+        delta_rows=srv.deltas.shape[0], launches=counts)
+    if budget:
+        RESULT[label]["t_budget_s"] = srv._auto_budget
+    if fl.n_cells > 1:
+        RESULT[label].update(sel_per_cell=hist.sel_per_cell,
+                             handovers=hist.handovers)
+    log(f"FL {label} path (smollm-135M bf16, 50 clients, 10 slots a cell, "
+        f"{policy}, {fl.pairing}/{fl.selection}): {RESULT[label]}")
     return srv, counts
+
+
+def phase_fedagg_rows(torch, dev, srv, kinfo):
+    """fedagg over the multi-cell FL path's whole delta buffer (its rows
+    are the most clients three cells can select), against its plain
+    version and ``torch.mv``."""
+    from repro_torch.kernels import fedagg as F
+    u = srv.deltas
+    c, n = u.shape
+    w = torch.rand(c, generator=torch.Generator(device=dev).manual_seed(3),
+                   device=dev)
+    w = w / w.sum()
+    out, ref = F.fedagg(u, w), F.fedagg_plain(u, w)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+    b_ms, b_by = bound(c * n * 4 + c * 4 + n * 4, 2 * c * n)
+    kinfo["fedagg"]["at_budget_cells_shape"] = res = dict(
+        shape=[c, n], max_abs_err=max_err(torch, [out], [ref]),
+        ms=time_ms(torch, lambda: F.fedagg(u, w), reps=5, runs=5),
+        plain_ms=time_ms(torch, lambda: F.fedagg_plain(u, w), reps=2,
+                         runs=3),
+        library_ms=time_ms(torch, lambda: torch.mv(u.t(), w), reps=5,
+                           runs=5),
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"fedagg {(c, n)} (the multi-cell delta buffer): {res}")
 
 
 def phase_profile(torch, srv):
@@ -1231,6 +1554,8 @@ def main() -> int:
     phase_engine(torch, dev)
     phase_policies(torch, dev)
     phase_montecarlo(torch, dev)
+    phase_budget_engine(torch, dev)
+    phase_budget_montecarlo(torch, dev)
     phase_small_fl(torch, dev)
     srv, _ = phase_main_path(torch, dev)
     if "--profile" in sys.argv[1:]:
@@ -1240,6 +1565,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     srv, fl_counts = phase_main_path(torch, dev, "fl_hungarian_joint",
                                      pairing="hungarian", selection="joint")
+    del srv
+    release(torch)
+    srv, budget_counts = phase_main_path(torch, dev, "fl_budget",
+                                         policy="age_noma_budget")
+    del srv
+    release(torch)
+    srv, cells_counts = phase_main_path(torch, dev, "fl_budget_cells",
+                                        policy="age_noma_budget", rounds=2,
+                                        n_cells=3)
+    phase_fedagg_rows(torch, dev, srv, kinfo)
     del srv
     release(torch)
     profile = "--profile" in sys.argv[1:]
@@ -1266,7 +1601,9 @@ def main() -> int:
                  "make_prefill_step rwkv6_7b bf16, B=1, T=4096")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "launches_path": path, **kinfo[name]}
+         "launches": counts[name], "launches_path": path,
+         "launches_budget_fl": budget_counts[name],
+         "launches_budget_cells_fl": cells_counts[name], **kinfo[name]}
         for name, (src, rep, counts, path) in paths.items()]}
     RESULT.update(card=smi, kernels=line["kernels"])
     OUT.mkdir(exist_ok=True)

@@ -3,16 +3,19 @@ SIC pairing under a policy, closed-form power allocation, round time) over
 a batch of environments, on one device, and the pre-sampled Monte-Carlo
 rollout built on it.
 
-Counterpart of the no-budget, single-cell fast path of
-``src/repro/core/engine.py``: ``EngineParams``/``EngineSchedule``,
-``schedule_diag``, ``_age_priority``, ``round_robin_priority``,
-``_compute_times``, the admission contract of ``_admit_fast`` /
-``_admit_fast_seg``, ``_fast_finish`` under every pairing policy
-(strong_weak, adjacent, hungarian, greedy_matching) with the odd-candidate
-solo row, ``_completion_table``, ``_sw_completion``, the joint selection
-stage (``_joint_enum_mask``, ``_joint_swap_mask``, ``_joint_refine_mask``,
-``_pick_faster``), ``WirelessEngine`` with ``montecarlo_rounds`` /
-``_mc_loop`` / ``_montecarlo_step``, and ``engine_schedule_to_numpy``.
+Counterpart of ``src/repro/core/engine.py``: ``EngineParams`` /
+``EngineSchedule``, ``schedule_diag``, ``_age_priority``,
+``round_robin_priority``, ``_compute_times``, the admission contract of
+``_admit_fast`` / ``_admit_fast_seg``, ``_fast_finish`` under every
+pairing policy (strong_weak, adjacent, hungarian, greedy_matching) with
+the odd-candidate solo row, ``_completion_table``, ``_sw_completion``, the
+joint selection stage (``_joint_enum_mask``, ``_joint_swap_mask``,
+``_joint_refine_mask``, ``_pick_faster``), the round-time budget core
+(``_assemble``, ``_LoopState``, ``_schedule_one`` as
+``_budget_schedule``), the cell-partitioned planner
+(``_cell_member_table``, ``_multicell_schedule``, ``_merge_cells``),
+``WirelessEngine`` with ``montecarlo_rounds`` / ``_mc_loop`` /
+``_montecarlo_step``, and ``engine_schedule_to_numpy``.
 
 Stages (DESIGN.md section 8), all fixed-shape tensor ops, no host sync:
 
@@ -46,8 +49,25 @@ N <= ``JOINT_ENUM_MAX_N``, else a swap search scored by strong_weak
 completions through the pairscore kernel) and keeps the refined schedule
 only where strictly faster.
 
-A round-time budget, ``n_cells > 1`` and ``shard=True`` are later slices
-of the port and raise ``NotImplementedError`` naming their ROADMAP queue.
+A positive round-time budget runs the eviction loop (``plan.plan_round``'s
+budget loop) as batched tensor code: every row carries its own candidate
+count, so ``_assemble`` derives each rank index from a (B,) count, scores
+all B x P pair rows in one pairscore launch and scatters into a (B, n + 1)
+buffer whose last column takes the rows that do not exist (the reference's
+index-n drop target, DESIGN.md section 5.1). The hungarian policy there
+reads the fp32 ``completion_table`` (scored by the pairscore kernel), not
+the planner's bf16 tiles, as the reference's budget core does. The loop
+runs while any row is not done, one device-to-host read per iteration;
+rows that are done are frozen with ``torch.where``. Because the loop
+scores through the pairscore kernel itself, the reference's post-hoc
+``_rescore_pallas`` (which recomputes XLA-scored rates with the Pallas
+kernel) has no counterpart: it would recompute the same values.
+
+``n_cells > 1`` with a ``cell`` map partitions the clients by cell into a
+(B * C, cap) sub-batch (padding lanes: priority -inf, gain 0), runs the
+fast path or the budget loop on it, and merges back to client space
+(round time = max over cells, weights pooled over all selected clients).
+``shard=True`` raises ``NotImplementedError`` naming its ROADMAP queue.
 """
 from __future__ import annotations
 
@@ -63,19 +83,18 @@ from repro_torch.core import matching
 from repro_torch.core.pairing import ENUM_MAX_PAIRS, enumerate_matchings
 from repro_torch.core.plan import (AOU_BUCKET_EDGES, JOINT_ENUM_MAX_N,
                                    JOINT_SWAP_ITERS, RoundEnv, Schedule,
-                                   enumerate_subsets)
+                                   cell_capacity, enumerate_subsets)
 from repro_torch.kernels import pairscore, planner
 from repro_torch.kernels.backend import resolve_backend
 
 _LATER = {
-    "budget": "a round-time budget (t_budget > 0) and the age_noma_budget "
-              "policy are ROADMAP queue 1 (budget eviction loop)",
-    "cells": "n_cells > 1 and cell_seq are ROADMAP queue 1 (multi-cell)",
     "shard": "shard=True (seeds split over devices) is ROADMAP queue 2, "
              "with run_montecarlo",
 }
 
-# the policies montecarlo_rounds resolves to a priority vector
+# the no-budget policies montecarlo_rounds resolves to a priority vector;
+# it also takes "age_noma_budget" (the age priority under the caller's
+# t_budget)
 MC_POLICIES = ("age_noma", "oma_age", "channel", "round_robin", "random")
 
 
@@ -139,11 +158,13 @@ class EngineSchedule(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def schedule_diag(out: EngineSchedule, ages=None) -> dict:
+def schedule_diag(out: EngineSchedule, ages=None, *, cell=None,
+                  n_cells: int = 1) -> dict:
     """Per-round diagnostics with a leading batch dim on every leaf:
     t_round/t_comp_bottleneck/t_up_bottleneck (B,) fp32,
     n_selected/n_evicted (B,) int64, plus aou_hist (B, 7) int64 when
-    ``ages`` is given (DESIGN.md section 11)."""
+    ``ages`` is given and sel_per_cell (B, n_cells) int64 when a cell map
+    is given with ``n_cells > 1`` (DESIGN.md section 11)."""
     sel = out.selected
     tot = torch.where(sel, out.t_cmp + out.t_com, 0.0)
     bi = torch.argmax(tot, dim=-1, keepdim=True)
@@ -165,6 +186,10 @@ def schedule_diag(out: EngineSchedule, ages=None) -> dict:
         k = len(AOU_BUCKET_EDGES) + 1
         diag["aou_hist"] = (idx[..., None] == torch.arange(
             k, device=sel.device)).sum(dim=-2)
+    if cell is not None and n_cells > 1:
+        one_hot = torch.as_tensor(cell, device=sel.device)[..., None] \
+            == torch.arange(n_cells, device=sel.device)
+        diag["sel_per_cell"] = (sel[..., None] & one_hot).sum(dim=-2)
     return diag
 
 
@@ -197,16 +222,22 @@ def _compute_times(prm: EngineParams, n_samples, cpu_freq):
             / cpu_freq).to(torch.float32)
 
 
-def _admit(priority, gains, c: int):
-    """Top-``c`` admission mask by (priority desc, gain desc, index asc):
-    two stable descending sorts, the second over the first's order."""
-    b, n = gains.shape
-    if c >= n:
-        return torch.ones((b, n), dtype=torch.bool, device=gains.device)
+def _admission_order(priority, gains):
+    """(B, n) client ids by (priority desc, gain desc, index asc): two
+    stable descending sorts, the second over the first's order (the
+    reference's ``jnp.lexsort``)."""
     g_order = torch.sort(gains, dim=1, descending=True, stable=True).indices
     p_order = torch.sort(priority.gather(1, g_order), dim=1,
                          descending=True, stable=True).indices
-    top = g_order.gather(1, p_order[:, :c])
+    return g_order.gather(1, p_order)
+
+
+def _admit(priority, gains, c: int):
+    """Top-``c`` admission mask of ``_admission_order``."""
+    b, n = gains.shape
+    if c >= n:
+        return torch.ones((b, n), dtype=torch.bool, device=gains.device)
+    top = _admission_order(priority, gains)[:, :c]
     return torch.zeros((b, n), dtype=torch.bool,
                        device=gains.device).scatter_(1, top, True)
 
@@ -454,13 +485,17 @@ def _joint_refine_mask(cand, gains, t_cmp, model_bits, prm: EngineParams,
     return _joint_swap_mask(cand, gains, t_cmp, model_bits, prm, oma, c)
 
 
+def _where_rows(keep, old, new):
+    """``old`` where ``keep`` (B,), else ``new``, over any trailing dims."""
+    return torch.where(keep.reshape(keep.shape + (1,) * (old.dim() - 1)),
+                       old, new)
+
+
 def _pick_faster(a: EngineSchedule, b: EngineSchedule) -> EngineSchedule:
     """Per-batch-element never-worse guard: ``a`` where strictly faster,
     else ``b`` (ties keep ``b``, the greedy set)."""
     better = a.t_round < b.t_round
-    return EngineSchedule(*(
-        torch.where(better.reshape(better.shape + (1,) * (x.dim() - 1)),
-                    x, y) for x, y in zip(a, b)))
+    return EngineSchedule(*(_where_rows(better, x, y) for x, y in zip(a, b)))
 
 
 def _fast_schedule_batch(priority, gains, t_cmp, n_samples, model_bits,
@@ -479,6 +514,308 @@ def _fast_schedule_batch(priority, gains, t_cmp, n_samples, model_bits,
                                         model_bits, prm, oma, c, pairing),
                            out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# round-time budget: the eviction/backfill loop (plan.plan_round)
+# ---------------------------------------------------------------------------
+
+
+def _drop_scatter(n: int, at, vals):
+    """(B, n) zeros with ``vals`` written at ``at`` (B, k); index ``n`` is
+    the drop target of rows that do not exist."""
+    out = torch.zeros((at.shape[0], n + 1), dtype=vals.dtype,
+                      device=vals.device)
+    return out.scatter_(1, at, vals)[:, :n]
+
+
+def _assemble(cand, gains, t_cmp, model_bits, prm: EngineParams, oma: bool,
+              n_pairs: int, pairing: str):
+    """Pair each row's candidate mask under ``pairing``, allocate power and
+    scatter rates/powers to client space (``plan.match_candidates`` +
+    ``plan.allocate_rates``). The candidate count c varies per row, so
+    every rank index is a (B,) tensor; the matching policies run on static
+    (P, P) tables masked for the row's pair count m. All B x P pair rows
+    are scored in one pairscore call (the CUDA kernel on a CUDA device).
+    Returns (strong (B, P), weak (B, P), rates (B, n), powers (B, n))."""
+    b, n = gains.shape
+    n0b, pmax, bw = prm.noise_power_w, prm.max_power_w, prm.bandwidth_hz
+    dev = gains.device
+    c = cand.sum(dim=1)
+    sidx = torch.sort(torch.where(cand, gains, -torch.inf), dim=1,
+                      descending=True, stable=True).indices
+    odd = c % 2
+    has_solo = odd.bool()
+    c_pair = c - odd
+    m = c_pair // 2
+    solo_idx = sidx.gather(1, (c - 1).clamp(0, n - 1)[:, None])[:, 0]
+    at_rank = lambda r: sidx.gather(1, r.clamp(0, n - 1))
+
+    i = torch.arange(n_pairs, device=dev).expand(b, n_pairs)
+    valid = i < m[:, None]
+    if pairing == "strong_weak":
+        strong_at, weak_at = i, c_pair[:, None] - 1 - i
+    elif pairing == "adjacent":
+        strong_at, weak_at = 2 * i, 2 * i + 1
+    elif pairing == "greedy_matching":
+        g_s = gains.gather(1, at_rank(i))                     # strong half
+        g_w = gains.gather(1, at_rank(m[:, None] + i))        # weak half
+        score = torch.where(
+            valid[:, :, None] & valid[:, None, :],
+            pairscore.effective_power_table(g_s, g_w, n0b=n0b, pmax=pmax),
+            -1.0)
+        strong_at = i
+        weak_at = m[:, None] + matching.greedy_assignment(score)
+    else:                                                     # hungarian
+        strong_at, weak_at = _budget_hungarian(
+            sidx, gains, t_cmp, model_bits, prm, oma, n_pairs, m, c_pair,
+            valid)
+    strong = torch.where(valid, at_rank(strong_at), -1)
+    weak = torch.where(valid, at_rank(weak_at), -1)
+    p_i, p_j, r_i, r_j = pairscore.pairscore(
+        gains.gather(1, strong.clamp(0, n - 1)),
+        gains.gather(1, weak.clamp(0, n - 1)), n0b=n0b, pmax=pmax, bw=bw,
+        oma=oma)
+
+    at = torch.cat([torch.where(valid, strong, n), torch.where(valid, weak, n),
+                    torch.where(has_solo, solo_idx, n)[:, None]], dim=1)
+    solo_r = pairscore.solo_rate_math(gains.gather(1, solo_idx[:, None]),
+                                      n0b=n0b, pmax=pmax, bw=bw)
+    rates = _drop_scatter(n, at, torch.cat([r_i, r_j, solo_r], dim=1))
+    powers = _drop_scatter(n, at, torch.cat(
+        [p_i, p_j, torch.full_like(solo_r, pmax)], dim=1))
+
+    # the solo subchannel occupies pair row m as (solo, -1)
+    m_at = m.clamp(0, n_pairs - 1)[:, None]
+    strong = strong.scatter(1, m_at, torch.where(
+        has_solo[:, None], solo_idx[:, None], strong.gather(1, m_at)))
+    return strong, weak, rates, powers
+
+
+def _budget_hungarian(sidx, gains, t_cmp, model_bits, prm: EngineParams,
+                      oma: bool, n_pairs: int, m, c_pair, valid):
+    """Rank positions (strong, weak) (B, P) of the hungarian policy for a
+    per-row pair count m over the fp32 completion table of the top
+    s2 = min(2P, n) ranks: exact enumeration for m <= ENUM_MAX_PAIRS, the
+    Hungarian assignment on the ``pad_cost_table``-masked cost and a
+    three-start bottleneck 2-opt above, and the never-slower guard against
+    strong_weak."""
+    b, n = gains.shape
+    dev = gains.device
+    s2 = min(2 * n_pairs, n)
+    top = sidx[:, :s2]
+    table = _completion_table(gains.gather(1, top), t_cmp.gather(1, top),
+                              model_bits, prm, oma)           # (B, s2, s2)
+    i = torch.arange(n_pairs, device=dev).expand(b, n_pairs)
+    rev = torch.where(valid, c_pair[:, None] - 1 - i, i)
+    a_p, b_p = i, rev
+    mm_of = m[:, None]
+    for mm in range(1, min(ENUM_MAX_PAIRS, n_pairs) + 1):
+        if 2 * mm > s2:
+            continue
+        mt = torch.as_tensor(enumerate_matchings(mm), device=dev)
+        vals = table[:, mt[:, :, 0], mt[:, :, 1]]             # (B, L, mm)
+        best = vals.amax(dim=2).argmin(dim=1)
+        am = torch.cat([mt[best, :, 0], i[:, mm:]], dim=1)
+        bm = torch.cat([mt[best, :, 1], i[:, mm:]], dim=1)
+        a_p = torch.where(mm_of == mm, am, a_p)
+        b_p = torch.where(mm_of == mm, bm, b_p)
+    if n_pairs > ENUM_MAX_PAIRS:
+        cols = (mm_of + i).clamp(0, s2 - 1)                   # (B, P)
+        cost = table[:, :n_pairs].gather(
+            2, cols[:, None, :].expand(b, n_pairs, n_pairs))
+        sigma = matching.hungarian_assignment(
+            matching.pad_cost_table(cost, m))
+        adj = 2 * i
+        ah, bh = matching.best_bottleneck_matching(
+            table, ((i, mm_of + sigma), (i, rev), (adj, adj + 1)),
+            m_valid=m)
+        big = mm_of > ENUM_MAX_PAIRS
+        a_p = torch.where(big, ah, a_p)
+        b_p = torch.where(big, bh, b_p)
+    use = (matching.pair_bottleneck(table, a_p, b_p, m_valid=m)
+           < matching.pair_bottleneck(table, i, rev, m_valid=m))[:, None]
+    return torch.where(use, a_p, i), torch.where(use, b_p, rev)
+
+
+class _LoopState(NamedTuple):
+    cand: torch.Tensor       # (B, n) bool
+    evicted: torch.Tensor    # (B, n) bool
+    qptr: torch.Tensor       # (B,) backfill cursor into the order
+    done: torch.Tensor       # (B,) bool
+    strong: torch.Tensor     # (B, P)
+    weak: torch.Tensor       # (B, P)
+    rates: torch.Tensor      # (B, n)
+    powers: torch.Tensor     # (B, n)
+    t_com: torch.Tensor      # (B, n)
+    tot: torch.Tensor        # (B, n) completion times of the candidates
+    t_round: torch.Tensor    # (B,)
+
+
+def _budget_schedule(priority, gains, t_cmp, n_samples, model_bits,
+                     t_budget, prm: EngineParams, oma: bool, c: int,
+                     pairing: str, selection: str) -> EngineSchedule:
+    """Top-``c`` admission by (priority, gain, index) (plus the joint
+    refinement, kept where its realized round time is strictly lower),
+    then the budget eviction/backfill loop: while a row's round time
+    exceeds ``t_budget`` (B,) and it has more than one candidate, evict
+    its latency-critical client (``argmax`` of the completion times: the
+    first maximal index, as ``jnp.argmax`` takes) and backfill the first
+    never-admitted, never-evicted client at or after the row's cursor in
+    the admission order. The cursor starts at ``prm.slots``."""
+    b, n = gains.shape
+    dev = gains.device
+    n_pairs = max((c + 1) // 2, 1)
+    rows = torch.arange(b, device=dev)
+    pos = torch.arange(n, device=dev)
+    order = _admission_order(priority, gains)
+    cand0 = torch.zeros((b, n), dtype=torch.bool, device=dev).scatter_(
+        1, order[:, :c], True)
+
+    def sched_of(cand):
+        strong, weak, rates, powers = _assemble(
+            cand, gains, t_cmp, model_bits, prm, oma, n_pairs, pairing)
+        t_com = model_bits[:, None] / torch.clamp(rates, min=1e-9)
+        tot = torch.where(cand, t_cmp + t_com, 0.0)
+        return strong, weak, rates, powers, t_com, tot, tot.amax(dim=1)
+
+    s0 = sched_of(cand0)
+    if selection == "joint" and 0 < c < n:
+        refined = _joint_refine_mask(cand0, gains, t_cmp, model_bits, prm,
+                                     oma, c)
+        s_joint = sched_of(refined)
+        use = s_joint[6] < s0[6]            # never-worse guard (realized)
+        cand0 = torch.where(use[:, None], refined, cand0)
+        s0 = tuple(_where_rows(use, x, y) for x, y in zip(s_joint, s0))
+    done = (t_budget <= 0.0) | (s0[6] <= t_budget) | (cand0.sum(dim=1) <= 1)
+    st = _LoopState(cand0, torch.zeros_like(cand0),
+                    torch.full((b,), prm.slots, dtype=torch.int64,
+                               device=dev), done, *s0)
+    iters = 0
+    while not bool(st.done.all()):
+        # each iteration evicts one client of every live row, so no row
+        # outlives n iterations
+        if iters == n:
+            raise RuntimeError("budget loop ran past its n-iteration bound")
+        iters += 1
+        worst = st.tot.argmax(dim=1)
+        cand = st.cand.clone()
+        cand[rows, worst] = False
+        evicted = st.evicted.clone()
+        evicted[rows, worst] = True
+        elig = (~cand.gather(1, order) & ~evicted.gather(1, order)
+                & (pos >= st.qptr[:, None]))
+        fill = elig.any(dim=1)
+        at = elig.to(torch.uint8).argmax(dim=1)
+        nxt = torch.where(fill, order.gather(1, at[:, None])[:, 0], n)
+        cand = cand | _drop_scatter(n, nxt[:, None],
+                                    torch.ones_like(cand[:, :1]))
+        qptr = torch.where(fill, at + 1, st.qptr)
+        s = sched_of(cand)
+        done = (s[6] <= t_budget) | (cand.sum(dim=1) <= 1)
+        new = _LoopState(cand, evicted, qptr, done, *s)
+        st = _LoopState(*(_where_rows(st.done, old, upd)
+                          for old, upd in zip(st, new)))
+
+    w = n_samples * st.cand
+    w = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-12)
+    return EngineSchedule(
+        selected=st.cand, pair_strong=st.strong, pair_weak=st.weak,
+        rates=st.rates, powers=st.powers, t_cmp=t_cmp, t_com=st.t_com,
+        t_round=st.t_round, agg_weights=w, evicted=st.evicted)
+
+
+# ---------------------------------------------------------------------------
+# multi-cell: partition clients by cell, plan each cell, merge
+# (plan.plan_multicell)
+# ---------------------------------------------------------------------------
+
+
+def _cell_member_table(cell, n_cells: int, cap: int):
+    """(B, C, cap) client ids per cell: the first ``cap`` members in
+    client-index order (plan.py's truncation rule), padded with ``n``. One
+    sort of the keys ``cell * n + idx`` groups each cell's members in
+    index order; ``searchsorted`` finds each member's cell start, giving
+    its position within the cell."""
+    b, n = cell.shape
+    dev = cell.device
+    key = cell.to(torch.int64) * n + torch.arange(n, device=dev)
+    skey = torch.sort(key, dim=1).values
+    scell = skey // n
+    first = torch.searchsorted(scell, scell)
+    posc = torch.arange(n, device=dev) - first
+    keep = (posc < cap) & (scell >= 0) & (scell < n_cells)
+    dest = torch.where(keep, scell * cap + posc, n_cells * cap)
+    tbl = torch.full((b, n_cells * cap + 1), n, dtype=torch.int64,
+                     device=dev).scatter_(1, dest, skey % n)
+    return tbl[:, :-1].reshape(b, n_cells, cap)
+
+
+def _multicell_schedule(priority, gains, t_cmp, n_samples, model_bits,
+                        t_budget, cell, *, prm: EngineParams, oma: bool,
+                        pairing: str, selection: str, n_cells: int,
+                        cap: int) -> EngineSchedule:
+    """Gather each cell's (<= cap) members into a (B * C, cap) sub-batch,
+    run the fast path (``t_budget`` None) or the budget loop on it, merge
+    back. Padding lanes
+    carry (priority -inf, gain 0): admission ranks them last, the pair
+    math gives them rate 0, and the merge drops them. A cell with fewer
+    real members than slots admits padding on the fast path, as the
+    reference engine does (DESIGN.md section 10)."""
+    b, n = gains.shape
+    tbl = _cell_member_table(cell, n_cells, cap)
+    valid = tbl < n
+    flat = tbl.clamp(max=n - 1).reshape(b, n_cells * cap)
+
+    def gather(x, fill):
+        g = x.gather(1, flat).reshape(b, n_cells, cap)
+        return torch.where(valid, g, fill).reshape(b * n_cells, cap)
+
+    c_prio = gather(priority, -torch.inf)
+    c_g = gather(gains, 0.0)
+    c_tc = gather(t_cmp, 0.0)
+    c_ns = gather(n_samples, 0.0)
+    c_mb = model_bits.repeat_interleave(n_cells)
+    c = min(prm.slots, cap)
+    if t_budget is not None:
+        sub = _budget_schedule(c_prio, c_g, c_tc, c_ns, c_mb,
+                               t_budget.repeat_interleave(n_cells), prm, oma,
+                               c, pairing, selection)
+    else:
+        sub = _fast_schedule_batch(c_prio, c_g, c_tc, c_ns, c_mb, prm, oma,
+                                   c, pairing, selection)
+    return _merge_cells(sub, tbl, valid, t_cmp, n_samples, model_bits)
+
+
+def _merge_cells(sub: EngineSchedule, tbl, valid, t_cmp, n_samples,
+                 model_bits) -> EngineSchedule:
+    """Scatter per-cell schedules back to client space: round time = max
+    over cells (cells transmit in parallel), aggregation weights pooled
+    over all selected clients, pair tables remapped to global ids."""
+    b, n_cells, cap = tbl.shape
+    n = t_cmp.shape[1]
+    re = lambda x: x.reshape(b, n_cells, cap)
+    sel_pc = re(sub.selected) & valid
+    tot_pc = torch.where(sel_pc, re(sub.t_cmp) + re(sub.t_com), 0.0)
+    t_round = tot_pc.amax(dim=(1, 2))
+    cols = torch.where(valid, tbl, n).reshape(b, n_cells * cap)
+    scat = lambda v: _drop_scatter(n, cols, v.reshape(b, n_cells * cap))
+    selected = scat(sub.selected)
+    rates = scat(sub.rates)
+    t_com = model_bits[:, None] / torch.clamp(rates, min=1e-9)
+
+    def remap(p):
+        pc = p.reshape(b, n_cells, -1)
+        g = tbl.gather(2, pc.clamp(0, cap - 1))
+        return torch.where((pc >= 0) & (g < n), g, -1).reshape(b, -1)
+
+    w = n_samples * selected
+    w = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-12)
+    return EngineSchedule(
+        selected=selected, pair_strong=remap(sub.pair_strong),
+        pair_weak=remap(sub.pair_weak), rates=rates, powers=scat(sub.powers),
+        t_cmp=t_cmp, t_com=t_com, t_round=t_round, agg_weights=w,
+        evicted=scat(sub.evicted))
 
 
 # ---------------------------------------------------------------------------
@@ -511,8 +848,6 @@ class WirelessEngine:
             flcfg.selection if selection is None else selection)
         self.admission = _check_admission(
             flcfg.admission if admission is None else admission)
-        if flcfg.n_cells > 1:
-            raise NotImplementedError(_LATER["cells"])
         self.device = resolve_backend(
             flcfg.kernel_backend if kernel_backend is None
             else kernel_backend, device)
@@ -525,19 +860,26 @@ class WirelessEngine:
                        *, t_budget=0.0, oma: bool = False, priority=None,
                        pairing: Optional[str] = None,
                        selection: Optional[str] = None,
-                       admission: Optional[str] = None) -> EngineSchedule:
+                       admission: Optional[str] = None, cell=None,
+                       n_cells: Optional[int] = None) -> EngineSchedule:
         """Joint round over a batch of environments.
 
         gains/n_samples/cpu_freq/ages: (B, N) arrays or tensors;
         model_bits: scalar or (B,). ``priority=None`` uses the paper's age
         priority. ``admission`` (auto | full_sort | segmented) names the
         reference's implementation choice; all three give one mask here.
+
+        ``t_budget`` a Python scalar <= 0 runs the fast path (no budget);
+        a positive scalar, or any array or tensor (B,), runs the budget
+        eviction loop. ``cell`` ((B, N) int serving-cell ids) with
+        ``n_cells > 1`` (default ``FLConfig.n_cells``) runs the
+        cell-partitioned planner; ``n_cells == 1`` ignores ``cell``.
         """
         pairing = _check_pairing(pairing or self.pairing)
         selection = _check_selection(selection or self.selection)
         _check_admission(admission or self.admission)
-        if torch.is_tensor(t_budget) or float(t_budget) > 0.0:
-            raise NotImplementedError(_LATER["budget"])
+        no_budget = (isinstance(t_budget, (int, float))
+                     and float(t_budget) <= 0.0)
         gains = self._tensor(gains)
         n_samples = self._tensor(n_samples)
         b, n = gains.shape
@@ -549,17 +891,32 @@ class WirelessEngine:
         else:
             priority = self._tensor(priority)
         t_cmp = _compute_times(self.prm, n_samples, self._tensor(cpu_freq))
-        return _fast_schedule_batch(priority, gains, t_cmp, n_samples,
-                                    model_bits, self.prm, oma, c, pairing,
-                                    selection)
+        tb = None if no_budget else \
+            self._tensor(t_budget).expand(b).contiguous()
+        n_cells = self.flcfg.n_cells if n_cells is None else n_cells
+        if cell is not None and n_cells > 1:
+            return _multicell_schedule(
+                priority, gains, t_cmp, n_samples, model_bits, tb,
+                torch.as_tensor(np.asarray(cell) if not torch.is_tensor(cell)
+                                else cell, device=self.device),
+                prm=self.prm, oma=oma, pairing=pairing, selection=selection,
+                n_cells=n_cells, cap=cell_capacity(n, n_cells,
+                                                   self.prm.slots))
+        if no_budget:
+            return _fast_schedule_batch(priority, gains, t_cmp, n_samples,
+                                        model_bits, self.prm, oma, c,
+                                        pairing, selection)
+        return _budget_schedule(priority, gains, t_cmp, n_samples,
+                                model_bits, tb, self.prm, oma, c, pairing,
+                                selection)
 
     def schedule(self, env: RoundEnv, *, t_budget: Optional[float] = None,
                  oma: bool = False, priority=None,
                  policy: str = "age_noma",
                  pairing: Optional[str] = None,
-                 selection: Optional[str] = None) -> Schedule:
+                 selection: Optional[str] = None, cell=None) -> Schedule:
         """Single-env wrapper returning the numpy ``Schedule`` (used by
-        ``FLServer``)."""
+        ``FLServer``); ``cell`` (N,) is the serving-cell map."""
         if t_budget is None:
             t_budget = self.flcfg.t_budget_s
         batchify = lambda a: a[None] if torch.is_tensor(a) \
@@ -569,12 +926,12 @@ class WirelessEngine:
             batchify(env.cpu_freq), batchify(env.ages), env.model_bits,
             t_budget=t_budget, oma=oma, pairing=pairing,
             selection=selection,
-            priority=None if priority is None else batchify(priority))
+            priority=None if priority is None else batchify(priority),
+            cell=None if cell is None else batchify(cell))
         return engine_schedule_to_numpy(out, 0, info={
             "policy": policy, "engine": "torch",
             "evicted": np.flatnonzero(
                 out.evicted[0].cpu().numpy()).tolist()})
-
 
     # -- Monte-Carlo rollout ----------------------------------------------
 
@@ -587,82 +944,106 @@ class WirelessEngine:
                           cell_seq=None) -> dict:
         """Roll the AoU state machine over R rounds for S seeds, one batched
         step per round: gains_seq (R, S, N); n_samples/cpu_freq either
-        (S, N) static or (R, S, N) per round (pre-sampled).
+        (S, N) static or (R, S, N) per round (pre-sampled). A positive
+        ``t_budget`` runs the budget eviction loop every round
+        (``policy="age_noma_budget"`` is the age priority under it).
+        ``cell_seq`` ((R, S, N) int) runs the cell-partitioned planner when
+        ``FLConfig.n_cells > 1``.
 
         Returns the reference's keys, as tensors on the engine's device:
         t_round, n_selected, max_age, t_comp_bottleneck, t_up_bottleneck,
         n_evicted (R, S), aou_hist (R, S, 7), participation and
-        final_ages (S, N). ``policy="random"`` draws its priorities from a
+        final_ages (S, N), and under multi-cell the per-round
+        ``handovers`` (R, S): clients whose serving cell changed (0 in
+        round 0). ``policy="random"`` draws its priorities from a
         ``torch.Generator`` seeded with ``seed``, one draw per round (it
         cannot reproduce the reference's ``jax.random`` stream).
         """
         if shard:
             raise NotImplementedError(_LATER["shard"])
-        if cell_seq is not None:
-            raise NotImplementedError(_LATER["cells"])
-        if policy == "age_noma_budget" or float(t_budget) > 0.0:
-            raise NotImplementedError(_LATER["budget"])
         gains_seq = self._tensor(gains_seq)
         n_samples = self._tensor(n_samples)
         cpu_freq = self._tensor(cpu_freq)
+        if cell_seq is not None:
+            cell_seq = torch.as_tensor(np.asarray(cell_seq), device=self.device)
         per_round = lambda x, i: x if x.dim() == 2 else x[i]
 
         def env_fn(i):
             return (gains_seq[i], per_round(n_samples, i),
-                    per_round(cpu_freq, i))
+                    per_round(cpu_freq, i),
+                    None if cell_seq is None else cell_seq[i])
 
         return self._mc_loop(env_fn, gains_seq.shape[0], model_bits,
-                             policy=policy, seed=seed, pairing=pairing,
-                             selection=selection, admission=admission)
+                             policy=policy, t_budget=t_budget, seed=seed,
+                             pairing=pairing, selection=selection,
+                             admission=admission)
 
     def _mc_loop(self, env_fn, rounds: int, model_bits, *, policy: str,
-                 seed: int, pairing: Optional[str] = None,
+                 t_budget: float, seed: int, pairing: Optional[str] = None,
                  selection: Optional[str] = None,
                  admission: Optional[str] = None) -> dict:
         """R-round rollout, a Python loop of per-round steps; ``env_fn(i)``
-        yields round i's (gains, n_samples, cpu_freq)."""
-        if policy not in MC_POLICIES:
-            raise ValueError(f"unknown montecarlo policy {policy!r} "
-                             f"(expected one of {MC_POLICIES})")
+        yields round i's (gains, n_samples, cpu_freq, cell-or-None)."""
+        if policy not in MC_POLICIES + ("age_noma_budget",):
+            raise ValueError(f"unknown montecarlo policy {policy!r} (expected "
+                             f"one of {MC_POLICIES + ('age_noma_budget',)})")
         pairing = _check_pairing(pairing or self.pairing)
         selection = _check_selection(selection or self.selection)
         _check_admission(admission or self.admission)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         mb = self._tensor(model_bits)
-        ages = part = None
+        n_cells = self.flcfg.n_cells
+        ages = part = prev_cell = None
+        multicell = False
         keys = ("t_round", "n_selected", "max_age", "t_comp_bottleneck",
                 "t_up_bottleneck", "n_evicted", "aou_hist")
         out = {k: [] for k in keys}
+        handovers = []
         for i in range(rounds):
-            gains, n_samples, cpu_freq = env_fn(i)
+            gains, n_samples, cpu_freq, cell = env_fn(i)
             if ages is None:
                 ages = torch.ones(gains.shape, dtype=torch.float32,
                                   device=self.device)
                 part = torch.zeros(gains.shape, dtype=torch.float32,
                                    device=self.device)
+                multicell = n_cells > 1 and cell is not None
             ages, part, diag = _montecarlo_step(
                 ages, part, gains, n_samples, cpu_freq, mb, i, gen,
-                prm=self.prm, gamma=self.flcfg.age_exponent, policy=policy,
-                pairing=pairing, selection=selection)
+                cell if multicell else None, prm=self.prm,
+                gamma=self.flcfg.age_exponent, policy=policy,
+                t_budget=float(t_budget), pairing=pairing,
+                selection=selection, n_cells=n_cells)
             for k in keys:
                 out[k].append(diag[k])
+            if multicell:
+                handovers.append(
+                    torch.zeros(gains.shape[0], dtype=torch.int64,
+                                device=self.device) if prev_cell is None
+                    else (cell != prev_cell).sum(dim=1))
+                prev_cell = cell
         out = {k: torch.stack(v) for k, v in out.items()}
         out["participation"] = part
         out["final_ages"] = ages
+        if multicell:
+            out["handovers"] = torch.stack(handovers)
         return out
 
 
 def _montecarlo_step(ages, part, gains, n_samples, cpu_freq, model_bits,
-                     round_idx: int, gen, *, prm: EngineParams, gamma: float,
-                     policy: str, pairing: str, selection: str):
+                     round_idx: int, gen, cell=None, *, prm: EngineParams,
+                     gamma: float, policy: str, t_budget: float,
+                     pairing: str, selection: str, n_cells: int = 1):
     """One Monte-Carlo round over all seeds: the policy's priority, the
-    fast schedule, the age update. Returns (ages, participation, the
-    round's diag leaves plus max_age)."""
+    schedule (the fast path, the budget loop for ``t_budget > 0``, or the
+    cell-partitioned planner for a non-None ``cell``), the age update.
+    Returns (ages, participation, the round's diag leaves plus max_age)."""
     s, n = gains.shape
-    c = min(prm.slots, n)
+    cap = n if cell is None else cell_capacity(n, n_cells, prm.slots)
+    c = min(prm.slots, cap)
+    oma = policy == "oma_age"
     t_cmp = _compute_times(prm, n_samples, cpu_freq)
     mb = model_bits.expand(s)
-    if policy in ("age_noma", "oma_age"):
+    if policy in ("age_noma", "age_noma_budget", "oma_age"):
         prio = _age_priority(ages, n_samples, gamma)
     elif policy == "channel":
         prio = gains
@@ -671,8 +1052,18 @@ def _montecarlo_step(ages, part, gains, n_samples, cpu_freq, model_bits,
     else:                                           # round_robin
         prio = round_robin_priority(round_idx, n, c,
                                     gains.device).expand(s, n)
-    sched = _fast_schedule_batch(prio, gains, t_cmp, n_samples, mb, prm,
-                                 policy == "oma_age", c, pairing, selection)
+    tb = None if t_budget <= 0.0 else torch.full(
+        (s,), t_budget, dtype=torch.float32, device=gains.device)
+    if cell is not None:
+        sched = _multicell_schedule(
+            prio, gains, t_cmp, n_samples, mb, tb, cell, prm=prm, oma=oma,
+            pairing=pairing, selection=selection, n_cells=n_cells, cap=cap)
+    elif tb is None:
+        sched = _fast_schedule_batch(prio, gains, t_cmp, n_samples, mb, prm,
+                                     oma, c, pairing, selection)
+    else:
+        sched = _budget_schedule(prio, gains, t_cmp, n_samples, mb, tb, prm,
+                                 oma, c, pairing, selection)
     sel = sched.selected
     ages = torch.where(sel, 1.0, ages + 1.0)
     diag = schedule_diag(sched, ages)

@@ -2,9 +2,9 @@
 
 Counterpart of ``src/repro/core/matching.py``: ``hungarian_assignment``,
 ``greedy_assignment``, ``_gather_pairs``, ``pair_bottleneck``,
-``best_bottleneck_matching`` and ``two_opt_refine`` (whose six table
+``best_bottleneck_matching``, ``two_opt_refine`` (whose six table
 lookups per step are one ``_gather_pairs`` call, so the reference's
-per-entry ``_gather2`` has no counterpart). The reference runs them as
+per-entry ``_gather2`` has no counterpart) and ``pad_cost_table``. The reference runs them as
 XLA loops (``fori_loop`` / ``while_loop`` under ``vmap``), not in a Pallas
 kernel, so here they are plain batched tensor code on the tensors'
 device: a leading batch dim written out, and every loop a Python loop of
@@ -20,14 +20,22 @@ makes the extra ones no-ops.
 Tiebreaks: ``torch.argmin``/``argmax`` return the first extremum, as
 ``jnp.argmin``/``argmax`` do, and the fp32 operation order of the reduced
 costs and the dual updates is the reference's, so ``col4row`` equals the
-reference's bit for bit on the same fp32 table. ``pad_cost_table`` serves
-only the budget path and is not ported yet (ROADMAP queue 1).
+reference's bit for bit on the same fp32 table.
+
+The budget path's candidate count varies per row, so it passes a per-row
+``m_valid`` (B,): ``pad_cost_table`` masks the static (P, P) cost table
+(valid-valid entries keep their cost, mixed entries get ``BIG``,
+invalid-invalid ones ``fill_invalid``), ``pair_bottleneck`` scores padded
+trailing rows -inf and ``two_opt_refine`` applies an update only where
+``y < m_valid``. With ``m_valid=None`` every result is bitwise what it is
+without the mask.
 """
 from __future__ import annotations
 
 import torch
 
 INF = float("inf")
+BIG = 1e30   # >> any real completion time (<= ~1e16 s), << fp32 max
 
 
 def _flat(table: torch.Tensor) -> torch.Tensor:
@@ -124,21 +132,28 @@ def _gather_pairs(table: torch.Tensor, rows: torch.Tensor,
 
 
 def pair_bottleneck(table: torch.Tensor, rows: torch.Tensor,
-                    cols: torch.Tensor) -> torch.Tensor:
+                    cols: torch.Tensor, m_valid=None) -> torch.Tensor:
     """Worst pair completion of the matching {(rows[k], cols[k])}: the
     metric the hungarian policy's restarts and never-slower guard compare
-    on."""
-    return _gather_pairs(table, rows, cols).amax(dim=-1)
+    on. ``m_valid`` (...,) masks padded trailing rows; an all-pad matching
+    scores -inf, so strict-< guards reject it."""
+    vals = _gather_pairs(table, rows, cols)
+    if m_valid is not None:
+        k = torch.arange(rows.shape[-1], device=rows.device)
+        vals = torch.where(k < m_valid[..., None], vals, -INF)
+    return vals.amax(dim=-1)
 
 
-def best_bottleneck_matching(table: torch.Tensor, inits, sweeps: int = 2):
+def best_bottleneck_matching(table: torch.Tensor, inits, m_valid=None,
+                             sweeps: int = 2):
     """Multi-start bottleneck 2-opt: refine each (a0, b0) init and keep the
     matching with the smallest worst-pair completion (strict improvement
     only, earliest init wins ties)."""
     a_p = b_p = best_t = None
     for a0, b0 in inits:
-        ca, cb = two_opt_refine(table, a0, b0, sweeps=sweeps)
-        t = pair_bottleneck(table, ca, cb)
+        ca, cb = two_opt_refine(table, a0, b0, m_valid=m_valid,
+                                sweeps=sweeps)
+        t = pair_bottleneck(table, ca, cb, m_valid)
         if a_p is None:
             a_p, b_p, best_t = ca, cb, t
         else:
@@ -150,12 +165,13 @@ def best_bottleneck_matching(table: torch.Tensor, inits, sweeps: int = 2):
 
 
 def two_opt_refine(table: torch.Tensor, strong_pos: torch.Tensor,
-                   weak_pos: torch.Tensor, sweeps: int = 2):
+                   weak_pos: torch.Tensor, m_valid=None, sweeps: int = 2):
     """Bottleneck 2-opt over the full (..., c, c) sorted-rank completion
     table, walking the reference's static (sweep, x, y) schedule. For each
     pair of pairs the two re-pairings are adopted only on a strict
     improvement of the max completion; equal alternatives prefer the
-    first. The six table entries of a step are one gather."""
+    first. The six table entries of a step are one gather. ``m_valid``
+    (...,) gates the updates where trailing rows are padding."""
     m = strong_pos.shape[-1]
     a = strong_pos.to(torch.int64).clone()
     b = weak_pos.to(torch.int64).clone()
@@ -176,11 +192,28 @@ def two_opt_refine(table: torch.Tensor, strong_pos: torch.Tensor,
                 cur = torch.maximum(vals[..., 0], vals[..., 1])
                 alt1 = torch.maximum(vals[..., 2], vals[..., 3])
                 alt2 = torch.maximum(vals[..., 4], vals[..., 5])
-                take1 = (alt1 < cur) & (alt1 <= alt2)
-                take2 = (alt2 < cur) & ~take1
+                ok = True if m_valid is None else y < m_valid
+                take1 = ok & (alt1 < cur) & (alt1 <= alt2)
+                take2 = ok & (alt2 < cur) & ~take1
                 pick = lambda v1, v2, keep: torch.where(
                     take1, v1, torch.where(take2, v2, keep))
                 new = (pick(o1[0], o2[0], pa), pick(o1[1], o2[1], pb),
                        pick(o1[2], o2[2], qa), pick(o1[3], o2[3], qb))
                 a[..., x], b[..., x], a[..., y], b[..., y] = new
     return a, b
+
+
+def pad_cost_table(cost: torch.Tensor, m_valid: torch.Tensor,
+                   fill_invalid: float = 0.0) -> torch.Tensor:
+    """Mask a fixed-shape (..., P, P) table for a per-instance valid size
+    ``m_valid`` (...,): rows/cols >= m_valid are invalid. Valid-invalid
+    entries get ``BIG`` so the min-sum assignment never mixes them;
+    invalid-invalid entries get ``fill_invalid``."""
+    p = cost.shape[-1]
+    i = torch.arange(p, device=cost.device)
+    mv = m_valid[..., None]
+    vr = (i < mv)[..., :, None]
+    vc = (i < mv)[..., None, :]
+    return torch.where(vr & vc, cost, torch.where(
+        vr ^ vc, torch.tensor(BIG, dtype=cost.dtype, device=cost.device),
+        torch.tensor(fill_invalid, dtype=cost.dtype, device=cost.device)))

@@ -1,7 +1,7 @@
 """Round-planner data types and diagnostics (numpy, host side).
 
 Copy of ``RoundEnv``, ``Schedule``, ``schedule_diag``, ``JOINT_ENUM_MAX_N``,
-``JOINT_SWAP_ITERS`` and ``enumerate_subsets`` from
+``JOINT_SWAP_ITERS``, ``enumerate_subsets`` and ``cell_capacity`` from
 ``src/repro/core/plan.py``, and of ``AOU_BUCKET_EDGES`` and
 ``aou_histogram`` from ``src/repro/obs/metrics.py``. The engine
 (core/engine.py) returns its batched result as tensors and hands one row
@@ -39,6 +39,18 @@ def enumerate_subsets(n: int, c: int) -> np.ndarray:
                     dtype=np.int64).reshape(-1, c)
 
 
+def cell_capacity(n: int, n_cells: int, slots: int) -> int:
+    """Static per-cell member capacity of the cell-partitioned planner: the
+    first ``cap`` members of a cell in client-index order are considered.
+    ``2x`` the ceil-mean occupancy absorbs the imbalance of random
+    placement; the ``2 * slots`` floor lets every cell fill its
+    subchannels."""
+    if n_cells <= 1:
+        return n
+    avg = -(-n // n_cells)
+    return min(n, max(2 * avg, 2 * slots))
+
+
 def aou_histogram(ages, edges: Sequence[float] = AOU_BUCKET_EDGES
                   ) -> np.ndarray:
     """Fixed-shape AoU bucket counts: ``ages`` (..., N) -> int64 counts
@@ -74,12 +86,14 @@ class Schedule:
     info: dict
 
 
-def schedule_diag(sched: Schedule, ages: Optional[np.ndarray] = None
-                  ) -> dict:
-    """Per-round diagnostics of a single-cell ``Schedule`` (DESIGN.md
-    section 11): the bottleneck client's t_comp/t_up split (sums to
-    t_round), selection and eviction counts, joint-swap acceptances, and
-    the population AoU histogram when ``ages`` is given."""
+def schedule_diag(sched: Schedule, ages: Optional[np.ndarray] = None, *,
+                  cell: Optional[np.ndarray] = None,
+                  n_cells: int = 1) -> dict:
+    """Per-round diagnostics of a ``Schedule`` (DESIGN.md section 11): the
+    bottleneck client's t_comp/t_up split (sums to t_round), selection and
+    eviction counts, joint-swap acceptances, the population AoU histogram
+    when ``ages`` is given, and ``sel_per_cell`` (selected clients per
+    cell) when a cell map is given with ``n_cells > 1``."""
     sel = np.asarray(sched.selected, dtype=bool)
     tot = np.where(sel, sched.t_cmp + sched.t_com, 0.0)
     b = int(np.argmax(tot))
@@ -95,4 +109,8 @@ def schedule_diag(sched: Schedule, ages: Optional[np.ndarray] = None
     }
     if ages is not None:
         diag["aou_hist"] = aou_histogram(ages)
+    if cell is not None and n_cells > 1:
+        diag["sel_per_cell"] = np.bincount(
+            np.asarray(cell, dtype=int)[sel], minlength=n_cells
+        ).astype(np.int64)
     return diag

@@ -2,12 +2,19 @@
 training substrate (models/, optim/, data/), on one device.
 
 Counterpart of ``FLServer`` and ``History`` in ``src/repro/fl/server.py``
-for one cell, no update predictor, and every policy but
-``age_noma_budget``, under every pairing policy and both selection modes
-(``FLConfig.pairing`` / ``selection``, or the ``pairing=`` / ``selection=``
-overrides). As on the reference's engine path, ``History.joint_swaps``
-reads 0: the engine's joint refinement is branch-free and reports no
-swap count. Per round:
+with no update predictor: every policy (``age_noma_budget`` included),
+one cell or ``FLConfig.n_cells > 1``, under every pairing policy and both
+selection modes (``FLConfig.pairing`` / ``selection``, or the
+``pairing=`` / ``selection=`` overrides). As on the reference's engine
+path, ``History.joint_swaps`` reads 0: the engine's joint refinement is
+branch-free and reports no swap count.
+
+``age_noma_budget`` is the age priority under a round-time budget:
+``FLConfig.t_budget_s`` if set, else twice the channel-greedy round time
+of the first round (at least 1e-6 s), computed once. The reference
+calibrates on its fp64 numpy planner; here the engine computes it (channel
+priority, no budget, the config's pairing and selection) in fp32. Per
+round:
 
   1. step the wireless scenario -> gains/n_samples/cpu; build RoundEnv
      (incl. the current AoU ages);
@@ -15,7 +22,9 @@ swap count. Per round:
      Schedule (mask, pairs, powers, rates, T_round), with the pairing
      policy and the selection mode of the config;
   3. run local SGD for each selected client, writing its delta into one
-     row of a (C, P) fp32 buffer;
+     row of a (C, P) fp32 buffer (C: the most clients the planner can
+     select, the sum over cells of min(slots, cell capacity), at most
+     ``n_clients``);
   4. FedAvg-aggregate the rows (one fedagg launch) and apply;
   5. advance the ages and the simulated wall clock by T_round.
 
@@ -36,7 +45,7 @@ from repro_torch.configs.base import FLConfig, ModelConfig, NOMAConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import aoi, plan
 from repro_torch.core.engine import WirelessEngine, round_robin_priority
-from repro_torch.core.plan import RoundEnv, Schedule
+from repro_torch.core.plan import RoundEnv, Schedule, cell_capacity
 from repro_torch.data import (TaskConfig, balanced_eval_set, client_batches,
                               partition_clients)
 from repro_torch.fl.aggregate import aggregate_deltas, apply_aggregate
@@ -65,7 +74,7 @@ class History:
     n_evicted: list = dataclasses.field(default_factory=list)
     joint_swaps: list = dataclasses.field(default_factory=list)
     aou_hist: list = dataclasses.field(default_factory=list)
-    # per-cell selection + handover counts (empty: one cell)
+    # per-cell selection + handover counts (empty lists when n_cells == 1)
     sel_per_cell: list = dataclasses.field(default_factory=list)
     handovers: list = dataclasses.field(default_factory=list)
     participation: Optional[np.ndarray] = None
@@ -93,10 +102,6 @@ class FLServer:
             fl = dataclasses.replace(fl, pairing=pairing)
         if selection is not None:
             fl = dataclasses.replace(fl, selection=selection)
-        if policy == "age_noma_budget":
-            raise NotImplementedError(
-                "policy 'age_noma_budget' is ROADMAP queue 1 (budget "
-                "eviction loop)")
         if fl.predictor != "none":
             raise NotImplementedError(
                 f"predictor {fl.predictor!r} is ROADMAP queue 3")
@@ -121,7 +126,7 @@ class FLServer:
         self.distances, self.cpu_freq = self.scenario.init(
             self.rng, fl.n_clients, n_samples=self.n_samples)
 
-        # model, trainer and the (slots, P) fp32 delta buffer
+        # model, trainer and the (C, P) fp32 delta buffer
         if params is None:
             self.model = zoo.init_model(model_cfg, seed=seed,
                                         device=self.device)
@@ -133,12 +138,14 @@ class FLServer:
                                     device=self.device)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.model_bits = fl.model_bits or float(n_params) * 32.0
-        slots = min(nomacfg.n_subchannels * nomacfg.users_per_subchannel,
-                    fl.n_clients)
-        self.deltas = torch.empty((slots, n_params), dtype=torch.float32,
+        slots = nomacfg.n_subchannels * nomacfg.users_per_subchannel
+        per_cell = min(slots, cell_capacity(fl.n_clients, fl.n_cells, slots))
+        rows = min(fl.n_cells * per_cell, fl.n_clients)
+        self.deltas = torch.empty((rows, n_params), dtype=torch.float32,
                                   device=self.device)
 
         self.ages = aoi.init_ages(fl.n_clients)
+        self._auto_budget: Optional[float] = None
         self.t_sim = 0.0
         self.round_idx = 0
         self.eval_tokens = torch.as_tensor(balanced_eval_set(task),
@@ -156,25 +163,66 @@ class FLServer:
 
     # -- scheduling --------------------------------------------------------
     def select(self, env: RoundEnv) -> Schedule:
-        """Every policy resolves to the engine's age priority or an
-        explicit priority vector (no budget)."""
+        """Every policy resolves to the engine's age priority (under the
+        budget for ``age_noma_budget``) or an explicit priority vector (no
+        budget); with ``n_cells > 1`` the engine plans each cell on the
+        scenario's current association."""
         p = self.policy
-        if p in ("age_noma", "oma_age"):
-            return self.engine.schedule(env, oma=p == "oma_age", policy=p)
         n = self.fl.n_clients
-        slots = min(self.noma.n_subchannels
-                    * self.noma.users_per_subchannel, n)
-        if p == "random":
-            prio = self.rng.uniform(size=n)
+        multicell = self.fl.n_cells > 1
+        cell = self.scenario.cell if multicell else None
+        t_budget = None          # None: FLConfig.t_budget_s
+        priority = None          # None: the paper's age priority
+        if p == "age_noma_budget":
+            t_budget = self._budget(env, cell)
+        elif p == "random":
+            priority, t_budget = self.rng.uniform(size=n), 0.0
         elif p == "channel":
-            prio = env.gains
+            priority, t_budget = env.gains, 0.0
         elif p == "round_robin":
-            prio = round_robin_priority(self.round_idx, n, slots,
-                                        self.device)
-        else:
+            slots = min(self.noma.n_subchannels
+                        * self.noma.users_per_subchannel, n)
+            priority = round_robin_priority(self.round_idx, n, slots,
+                                            self.device)
+            t_budget = 0.0
+        elif p not in ("age_noma", "oma_age"):
             raise ValueError(f"unknown policy {p!r}")
-        return self.engine.schedule(env, t_budget=0.0, policy=p,
-                                    priority=prio)
+        return self.engine.schedule(env, t_budget=t_budget,
+                                    oma=p == "oma_age", policy=p,
+                                    priority=priority, cell=cell)
+
+    def _budget(self, env: RoundEnv, cell) -> float:
+        """The ``age_noma_budget`` round-time budget, fixed on first use."""
+        if self._auto_budget is None:
+            budget = self.fl.t_budget_s
+            if budget <= 0.0:
+                budget = 2.0 * max(self._channel_greedy_time(env, cell),
+                                   1e-6)
+            self._auto_budget = budget
+        return self._auto_budget
+
+    def _channel_greedy_time(self, env: RoundEnv, cell) -> float:
+        """Round time of the channel-greedy schedule (channel priority, no
+        budget). With cells, each cell is planned alone on its real
+        members (the first ``cell_capacity`` in index order) and the
+        slowest cell's time is taken, as ``plan.plan_multicell`` does."""
+        if cell is None:
+            return self.engine.schedule(env, t_budget=0.0, policy="channel",
+                                        priority=env.gains).t_round
+        slots = self.noma.n_subchannels * self.noma.users_per_subchannel
+        cap = cell_capacity(len(env.gains), self.fl.n_cells, slots)
+        t_round = 0.0
+        for k in range(self.fl.n_cells):
+            mem = np.flatnonzero(cell == k)[:cap]
+            if mem.size:
+                sub = RoundEnv(gains=env.gains[mem],
+                               n_samples=env.n_samples[mem],
+                               cpu_freq=env.cpu_freq[mem],
+                               ages=env.ages[mem], model_bits=env.model_bits)
+                t_round = max(t_round, self.engine.schedule(
+                    sub, t_budget=0.0, policy="channel",
+                    priority=sub.gains).t_round)
+        return t_round
 
     def run_round(self) -> Schedule:
         gains, env_n_samples, env_cpu = self.scenario.step(self.rng)
@@ -206,12 +254,17 @@ class FLServer:
         rounds = rounds or self.fl.rounds
         hist = History()
         part = np.zeros(self.fl.n_clients)
+        multicell = self.fl.n_cells > 1
+        prev_cell = self.scenario.cell.copy()
         for r in range(rounds):
             sched = self.run_round()
             part += sched.selected
             if r % self.eval_every == 0 or r == rounds - 1:
                 acc, loss = self.evaluate()
-            diag = plan.schedule_diag(sched, self.ages)
+            cell = self.scenario.cell
+            diag = plan.schedule_diag(sched, self.ages,
+                                      cell=cell if multicell else None,
+                                      n_cells=self.fl.n_cells)
             hist.rounds.append(r)
             hist.sim_time.append(self.t_sim)
             hist.round_time.append(sched.t_round)
@@ -228,6 +281,10 @@ class FLServer:
             hist.n_evicted.append(diag["n_evicted"])
             hist.joint_swaps.append(diag["joint_swaps_accepted"])
             hist.aou_hist.append(diag["aou_hist"].tolist())
+            if multicell:
+                hist.sel_per_cell.append(diag["sel_per_cell"].tolist())
+                hist.handovers.append(int(np.sum(cell != prev_cell)))
+                prev_cell = cell.copy()
             if verbose and r % self.eval_every == 0:
                 print(f"[{self.policy}] round {r:3d} t={self.t_sim:9.1f}s "
                       f"acc={acc:.4f} loss={loss:.4f} "

@@ -355,3 +355,97 @@ class TestServingKernels:
                         device=dev)
         assert res["tokens"].shape == (2, 4)
         assert ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab_size)).all()
+
+
+def budget_batch(b, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.exponential(size=(b, n)) * 1e-9,
+            rng.uniform(100, 1000, (b, n)), rng.uniform(5e8, 2e9, (b, n)),
+            rng.integers(1, 30, (b, n)).astype(float))
+
+
+def assert_card_matches_cpu(out, ref, pairing):
+    """Masks exact; pair tables exact except hungarian rows that share the
+    bottleneck (fp32 rounding decides between tied matchings); rates and
+    round times rtol 1e-5."""
+    for f in ("selected", "evicted"):
+        assert torch.equal(getattr(out, f).cpu(), getattr(ref, f)), f
+    same = ((out.pair_strong.cpu() == ref.pair_strong)
+            & (out.pair_weak.cpu() == ref.pair_weak)).all(1)
+    if pairing != "hungarian":
+        assert bool(same.all())
+    torch.testing.assert_close(out.t_round.cpu(), ref.t_round, rtol=1e-5,
+                               atol=0.0)
+    torch.testing.assert_close(out.rates.cpu()[same], ref.rates[same],
+                               rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+class TestBudgetAndCells:
+    """The budget loop and the cell-partitioned planner on the card."""
+
+    @pytest.mark.parametrize("pairing", ["strong_weak", "adjacent",
+                                         "greedy_matching", "hungarian"])
+    def test_budget_schedule(self, pairing):
+        dev = cuda_device()
+        batch = budget_batch(16, 64, 3)
+        kw = dict(pairing=pairing)
+        cpu = WirelessEngine(NOMAConfig(), FLConfig(), device="cpu", **kw)
+        tb = (cpu.schedule_batch(*batch, 1e6).t_round * 0.5).numpy()
+        ref = cpu.schedule_batch(*batch, 1e6, t_budget=tb)
+        card = WirelessEngine(NOMAConfig(), FLConfig(), device=dev, **kw)
+        before = pairscore.pairscore.launches
+        out = card.schedule_batch(*batch, 1e6, t_budget=tb)
+        assert_card_matches_cpu(out, ref, pairing)
+        assert bool(ref.evicted.any())
+        if pairing == "strong_weak":
+            iters = int(out.evicted.sum(1).max())
+            assert pairscore.pairscore.launches == before + 1 + iters
+
+    def test_pairscore_on_padding_pairs(self):
+        """Padding lanes of the multi-cell planner have gain 0: the kernel
+        gives finite powers and rate 0 for them, as the plain math does."""
+        dev = cuda_device()
+        g = torch.tensor([1e-9, 0.0, 3e-12, 0.0], device=dev)
+        gj = torch.tensor([0.0, 0.0, 0.0, 2e-12], device=dev)
+        gi = torch.where(gj > g, gj, g)
+        out = pairscore.pairscore(gi, gj, **KW)
+        ref = pairscore.pair_math(gi, gj, **KW)
+        for o, r in zip(out, ref):
+            assert bool(torch.isfinite(o).all())
+            torch.testing.assert_close(o, r, **PAIR_TOL)
+        assert bool((out[3][gj == 0] == 0).all())
+        assert bool((out[2][gi == 0] == 0).all())
+
+    def test_budget_loop_never_takes_the_plain_path(self, monkeypatch):
+        dev = cuda_device()
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("the plain pair math ran on the card")
+
+        monkeypatch.setattr(pairscore, "pair_math", refuse)
+        batch = budget_batch(8, 40, 5)
+        for pairing in ("strong_weak", "hungarian"):
+            eng = WirelessEngine(NOMAConfig(), FLConfig(), device=dev,
+                                 pairing=pairing)
+            out = eng.schedule_batch(*batch, 1e6, t_budget=0.05)
+            assert bool(out.evicted.any())
+            mc = eng.montecarlo_rounds(np.stack([batch[0]] * 3), batch[1],
+                                       batch[2], 1e6,
+                                       policy="age_noma_budget",
+                                       t_budget=0.05)
+            assert bool((mc["n_evicted"] > 0).any())
+
+    @pytest.mark.parametrize("budget", [0.0, 0.3])
+    def test_multicell_schedule(self, budget):
+        dev = cuda_device()
+        batch = budget_batch(8, 120, 7)
+        cell = np.random.default_rng(8).integers(0, 3, (8, 120))
+        cell[:, :100] = np.minimum(cell[:, :100], 1)     # cell 2 underfull
+        kw = dict(t_budget=budget, cell=cell, n_cells=3)
+        ref = WirelessEngine(NOMAConfig(), FLConfig(),
+                             device="cpu").schedule_batch(*batch, 1e6, **kw)
+        out = WirelessEngine(NOMAConfig(), FLConfig(),
+                             device=dev).schedule_batch(*batch, 1e6, **kw)
+        assert_card_matches_cpu(out, ref, "strong_weak")
+        assert bool(torch.isfinite(out.rates).all())

@@ -199,15 +199,9 @@ class TestContract:
                                               for i in range(4))
 
     @pytest.mark.parametrize("method,kw,exc", [
-        ("schedule_batch", dict(t_budget=1.0), NotImplementedError),
         ("schedule_batch", dict(pairing="nope"), ValueError),
         ("schedule_batch", dict(admission="nope"), ValueError),
-        ("montecarlo_rounds", dict(t_budget=1.0), NotImplementedError),
-        ("montecarlo_rounds", dict(cell_seq=np.zeros((2, 2, 16), int)),
-         NotImplementedError),
         ("montecarlo_rounds", dict(shard=True), NotImplementedError),
-        ("montecarlo_rounds", dict(policy="age_noma_budget"),
-         NotImplementedError),
         ("montecarlo_rounds", dict(policy="nope"), ValueError),
     ])
     def test_out_of_scope_raises(self, method, kw, exc):
@@ -220,11 +214,6 @@ class TestContract:
             else:
                 eng.montecarlo_rounds(np.stack([gains, gains]), n_samples,
                                       cpu_freq, MODEL_BITS, **kw)
-
-    def test_multicell_raises(self):
-        with pytest.raises(NotImplementedError):
-            E.WirelessEngine(NOMAConfig(), FLConfig(n_cells=3),
-                             device="cpu")
 
 
 def assert_pairs_match_or_near_tie(out, ref, k, batch):

@@ -171,7 +171,6 @@ def test_other_policies_and_driver():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(policy="age_noma_budget"), NotImplementedError),
     (dict(fl=FLConfig(predictor="ann")), NotImplementedError),
     (dict(fl=FLConfig(scenario="vehicular")), NotImplementedError),
     (dict(fl=FLConfig(scenario="nope")), ValueError),
