@@ -22,7 +22,9 @@ Phases, each fatal on failure:
      their invariants and against the CPU;
   5. the Monte-Carlo rollout (``montecarlo_rounds``, R=20, S=32, N=64) for
      five policies under strong_weak and hungarian, card against CPU;
-  6. the FL round on a small model, card against CPU (the reference);
+  6. the FL round on a small model, card against CPU (the reference),
+     also under the vehicular scenario at n_cells=3, under iot_bursty,
+     and through ``compare_policies`` (every policy, 2 rounds);
   6a. the budget eviction loop (B=64, N=64, K=5, half the no-budget round
      time) for all four pairings x both selections, card against CPU, and
      the pairscore kernel at the loop's shapes and on padding pairs;
@@ -45,10 +47,23 @@ Phases, each fatal on failure:
      T=4096; ``run_serve`` with a 64-token prompt and 16 generated
      tokens; at T=256 the prefill's per-layer states and last logits
      against 256 decode steps from an empty cache, reported in bf16 and
-     held in fp32.
-Phases 6a, 7, 8 (each FL path), 9 (run_serve) and 10 (the T=4096
-prefill) each set every kernel's launch count to 0 just before and read
-it just after.
+     held in fp32;
+ 11. every registered scenario through ``run_montecarlo`` with the six
+     policies (R=16, S=64, N=128): fused against presampled bitwise,
+     ``first_env`` against round 0 of ``rollout``, the card's rollout
+     through the CPU engine; n_cells=3 under vehicular and pedestrian
+     with handovers;
+ 12. vehicular fused and presampled at N=10,000, S=64, R=5, K=128;
+ 13. ``shard=True`` on one card, and the seed split over [card, card],
+     against the unsplit run, bitwise, for every policy;
+ 14. ``repro_torch.launch.train.main`` at the full width of smollm-135M
+     (age_noma_budget, 30 clients, 3 rounds): strict history JSON, the
+     checkpoint restored bitwise into a fresh model, the ledger manifest.
+Phases 6a, 7, 8 (each FL path), 9 (run_serve), 10 (the T=4096 prefill)
+and 14 each set every kernel's launch count to 0 just before and read it
+just after. The run ledgers go to a temporary directory
+(``REPRO_RUNS_DIR``), removed at the end. The phases run in the order
+1-5, 6a, 6b, 11-13, 6, 7, 8, 14, 9, 10.
 
 With ``--profile`` it then times the stages of one more FL round and
 traces another with ``torch.profiler``, and traces one prefill and one
@@ -56,7 +71,8 @@ decode step in each of phases 9 and 10 (naming the swa and wkv6 kernels'
 calls and device time within the prefill). It prints a ``{"kernels": [...]}``
 line (launches of the four FL kernels from phase 8's hungarian + joint
 path, of swa from phase 9, of wkv6 from phase 10; each entry also has
-the launches of the budget FL path and of the multi-cell budget FL path),
+the launches of the budget FL path, of the multi-cell budget FL path and
+of the train CLI's path, ``launches_train``),
 the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details go to
@@ -70,9 +86,12 @@ import gc
 import itertools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1105,8 +1124,61 @@ def phase_small_fl(torch, dev):
                          sel_per_cell=h_card.sel_per_cell)
     if not any(sum(r["n_evicted"]) for r in res.values()):
         raise AssertionError(f"small FL budget runs evicted nobody: {res}")
+    # dynamic scenarios: the numpy twin draws the same environment on both
+    for name, kw in {"vehicular n_cells=3": dict(scenario="vehicular",
+                                                 n_cells=3),
+                     "iot_bursty": dict(scenario="iot_bursty")}.items():
+        h_cpu, h_card = (small_fl(d, state, rounds=3, **kw)
+                         for d in ("cpu", dev))
+        check_small_fl(h_card, h_cpu, name)
+        res[name] = dict(n_selected=h_card.n_selected,
+                         sel_per_cell=h_card.sel_per_cell,
+                         handovers=h_card.handovers)
+    res["compare_policies"] = compare_small(dev)
     RESULT["small_fl"] = res
-    log(f"small FL budget and multi-cell runs: card == CPU; {res}")
+    log(f"small FL budget, multi-cell, scenario and compare_policies runs: "
+        f"card == CPU; {res}")
+
+
+def check_small_fl(h_card, h_cpu, name, loss=True):
+    """Selections, evictions, cells and handovers equal; loss rtol 1e-3
+    (same initial weights only); round time rtol 1e-4."""
+    for key in ("n_selected", "n_evicted", "sel_per_cell", "handovers"):
+        if getattr(h_card, key) != getattr(h_cpu, key):
+            raise AssertionError(f"small FL {name}: {key} card "
+                                 f"{getattr(h_card, key)} vs CPU "
+                                 f"{getattr(h_cpu, key)}")
+    if not (h_card.participation == h_cpu.participation).all():
+        raise AssertionError(f"small FL {name} selects differently")
+    for a, b in zip(h_card.loss, h_cpu.loss):
+        if not (math.isclose(a, b, rel_tol=1e-3) if loss
+                else math.isfinite(a)):
+            raise AssertionError(f"small FL {name} loss card {a} vs CPU {b}")
+    for a, b in zip(h_card.round_time, h_cpu.round_time):
+        if not math.isclose(a, b, rel_tol=1e-4):
+            raise AssertionError(f"small FL {name} round time card {a} "
+                                 f"vs CPU {b}")
+
+
+def compare_small(dev):
+    """``compare_policies`` on the tiny config, 2 rounds, card against
+    CPU: the initial weights come from each device's generator, so the
+    losses are held finite, the selections and round times equal."""
+    from repro_torch.configs import FLConfig, NOMAConfig, get_config
+    from repro_torch.configs.base import POLICIES
+    from repro_torch.data import TaskConfig
+    from repro_torch.fl import compare_policies
+    cfg = dataclasses.replace(get_config("smollm_135m").reduced(), **SMALL)
+    runs = {d: compare_policies(
+        cfg, FLConfig(n_clients=8, local_batch=8, lr=0.2,
+                      samples_per_client=(24, 48)),
+        NOMAConfig(n_subchannels=2),
+        TaskConfig(vocab_size=32, n_topics=4, seq_len=17), rounds=2,
+        device=d) for d in ("cpu", dev)}
+    for p in POLICIES:
+        check_small_fl(runs[dev][p], runs["cpu"][p], f"compare/{p}",
+                       loss=False)
+    return {p: runs[dev][p].n_selected for p in POLICIES}
 
 
 def phase_main_path(torch, dev, label="fl", policy="age_noma",
@@ -1204,6 +1276,276 @@ def phase_main_path(torch, dev, label="fl", policy="age_noma",
     log(f"FL {label} path (smollm-135M bf16, 50 clients, 10 slots a cell, "
         f"{policy}, {fl.pairing}/{fl.selection}): {RESULT[label]}")
     return srv, counts
+
+
+# ---------------------------------------------------------------------------
+# phases 11-14: the scenario sampler, the fused Monte-Carlo sweep, the
+# seed split and the train CLI
+# ---------------------------------------------------------------------------
+
+MC_R, MC_S, MC_N = 16, 64, 128     # benchmarks/scenario_throughput.py:74
+
+
+def equal_runs(fused, pre, policies, label):
+    """Raw arrays bitwise and summaries equal, policy by policy."""
+    import numpy as np
+    for p in policies:
+        if sorted(fused[p]) != sorted(pre[p]):
+            raise AssertionError(f"{label}/{p}: keys differ")
+        for k in fused[p]:
+            if not np.array_equal(fused[p][k], pre[p][k]):
+                raise AssertionError(f"{label}/{p}: {k} differs")
+        if fused["summary"][p] != pre["summary"][p]:
+            raise AssertionError(f"{label}/{p}: summaries differ")
+
+
+def card_vs_cpu(torch, res, env, fl, ncfg, policies, seed, label):
+    """The card's rollout, moved to the CPU, through the CPU engine's
+    ``montecarlo_rounds``: integer leaves equal, t_round rtol 1e-5; random
+    is left out (its priorities come from the card's generator)."""
+    import numpy as np
+    from repro_torch.core.engine import WirelessEngine
+    cpu = WirelessEngine(ncfg, fl, device="cpu")
+    g, ns, cf, cell = (x.cpu() for x in env)
+    keys = ("n_selected", "n_evicted", "participation", "final_ages")
+    if fl.n_cells > 1:
+        keys += ("handovers",)
+    for p in policies:
+        if p == "random":
+            continue
+        tb = res["summary"][p]["t_budget_s"] or 0.0
+        ref = cpu.montecarlo_rounds(g, ns, cf, res["meta"]["model_bits"],
+                                    policy=p, t_budget=tb, seed=seed,
+                                    cell_seq=cell if fl.n_cells > 1
+                                    else None)
+        for k in keys:
+            if not np.array_equal(res[p][k], ref[k].numpy()):
+                raise AssertionError(f"{label}/{p}: {k} card vs CPU")
+        np.testing.assert_allclose(res[p]["t_round"], ref["t_round"].numpy(),
+                                   rtol=1e-5, atol=0.0,
+                                   err_msg=f"{label}/{p}: t_round")
+
+
+def phase_scenarios(torch, dev):
+    """Every registered scenario through ``run_montecarlo`` with all six
+    policies (R=16, S=64, N=128, strong_weak, default NOMAConfig), fused
+    and presampled, bitwise; ``first_env`` is round 0 of ``rollout``; the
+    card's rollout through the CPU engine. Then n_cells=3 under vehicular
+    and pedestrian for age_noma and age_noma_budget, with handovers."""
+    from repro_torch.configs import FLConfig, NOMAConfig
+    from repro_torch.configs.base import POLICIES
+    from repro_torch.fl import run_montecarlo
+    from repro_torch.sim import SCENARIOS, as_scenario
+    r, s, n, seed = MC_R, MC_S, MC_N, 0
+    ncfg = NOMAConfig()
+    run_montecarlo(ncfg, FLConfig(), n_clients=n, n_seeds=s, rounds=2,
+                   policies=("age_noma",), scenario="vehicular",
+                   device=dev)                                # warm-up
+    cases = [(name, 1, POLICIES) for name in SCENARIOS] + [
+        (name, 3, ("age_noma", "age_noma_budget"))
+        for name in ("vehicular", "pedestrian")]
+    res = {}
+    for name, n_cells, policies in cases:
+        fl = FLConfig(n_cells=n_cells)
+        label = f"{name} C={n_cells}"
+        kw = dict(n_clients=n, n_seeds=s, rounds=r, policies=policies,
+                  seed=seed, scenario=name, device=dev)
+        times = {}
+        for presampled in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_montecarlo(ncfg, fl, presampled=presampled, **kw)
+            torch.cuda.synchronize()
+            times[presampled] = (time.perf_counter() - t0, out)
+        (t_f, fused), (t_p, pre) = times[False], times[True]
+        equal_runs(fused, pre, policies, label)
+        scn = as_scenario(name, ncfg, fl, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env = scn.rollout(seed, r, (s, n))
+        torch.cuda.synchronize()
+        t_roll = time.perf_counter() - t0
+        for a, b in zip(scn.first_env(seed, r, (s, n)), env):
+            if not torch.equal(a, b[0]):
+                raise AssertionError(f"{label}: first_env is not round 0")
+        card_vs_cpu(torch, fused, env, fl, ncfg, policies, seed, label)
+        drops = s * r * len(policies)
+        summ = fused["summary"]
+        res[label] = dict(
+            policies=list(policies), fused_s=t_f, presampled_s=t_p,
+            # one scenario step (the fused loop takes one a round a policy)
+            step_ms=t_roll / r * 1e3,
+            fused_drops_per_s=drops / t_f, presampled_drops_per_s=drops / t_p,
+            auto_budget_s=summ["age_noma_budget"]["t_budget_s"],
+            mean_t_round_s={p: summ[p]["mean_t_round_s"] for p in policies},
+            mean_n_evicted=summ["age_noma_budget"]["mean_n_evicted"],
+            handover_rate={p: summ[p]["handover_rate"] for p in policies})
+        if n_cells > 1 and not all(summ[p]["handover_rate"] > 0
+                                   for p in policies):
+            raise AssertionError(f"{label}: no handover under mobility")
+        log(f"scenario {label} R={r} S={s} N={n}: fused == presampled "
+            f"bitwise, first_env == round 0, card == CPU; {res[label]}")
+    RESULT["scenarios"] = dict(R=r, S=s, N=n, K=ncfg.n_subchannels, **res)
+
+
+def phase_scenario_scale(torch, dev):
+    """vehicular fused (and presampled) at N=10,000, S=64, R=5, K=128."""
+    from repro_torch.configs import FLConfig, NOMAConfig
+    from repro_torch.fl import run_montecarlo
+    r, s, n, k = 5, 64, 10_000, 128
+    ncfg = NOMAConfig(n_subchannels=k)
+    kw = dict(n_clients=n, n_seeds=s, rounds=r, policies=("age_noma",),
+              seed=1, scenario="vehicular", device=dev)
+    run_montecarlo(ncfg, FLConfig(), **dict(kw, rounds=1))     # warm-up
+    res = {}
+    outs = {}
+    for presampled in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        outs[presampled] = run_montecarlo(ncfg, FLConfig(),
+                                          presampled=presampled, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        tag = "presampled" if presampled else "fused"
+        res[tag] = dict(s=sec, drops_per_s=r * s / sec,
+                        peak_mem_gib=(torch.cuda.max_memory_allocated(dev)
+                                      - base) / 2 ** 30)
+    equal_runs(outs[False], outs[True], ("age_noma",), "vehicular N=10,000")
+    if not (outs[False]["age_noma"]["n_selected"] == 2 * k).all():
+        raise AssertionError("vehicular N=10,000: not c per round")
+    RESULT["scenario_scale"] = dict(R=r, S=s, N=n, K=k, **res)
+    log(f"scenario vehicular R={r} S={s} N={n} K={k}: {res}")
+
+
+def phase_shard(torch, dev):
+    """``montecarlo_scenario(shard=True)`` on one card equals
+    ``shard=False`` bitwise for every policy, and so does the seed split
+    over [card, card] (two worker threads on one card)."""
+    from repro_torch.configs import FLConfig, NOMAConfig
+    from repro_torch.configs.base import POLICIES
+    from repro_torch.core import engine as E
+    from repro_torch.sim import as_scenario
+    ncfg, fl = NOMAConfig(), FLConfig()
+    eng = E.WirelessEngine(ncfg, fl, device=dev)
+    scn = as_scenario("vehicular", ncfg, fl, device=dev)
+    tb = RESULT["scenarios"]["vehicular C=1"]["auto_budget_s"]
+    orig = E.shard_devices
+    res = {}
+    for p in POLICIES:
+        kw = dict(rounds=MC_R, n_seeds=MC_S, n_clients=MC_N, model_bits=1e6,
+                  policy=p, seed=0,
+                  t_budget=tb if p == "age_noma_budget" else 0.0)
+        whole = eng.montecarlo_scenario(scn, **kw)
+        one = eng.montecarlo_scenario(scn, shard=True, **kw)
+        E.shard_devices = lambda d: [dev, dev]
+        try:
+            t0 = time.perf_counter()
+            two = eng.montecarlo_scenario(scn, shard=True, **kw)
+            torch.cuda.synchronize()
+            res[p] = dict(split_s=time.perf_counter() - t0)
+        finally:
+            E.shard_devices = orig
+        for k in whole:
+            if not (torch.equal(whole[k], one[k])
+                    and torch.equal(whole[k], two[k])):
+                raise AssertionError(f"shard/{p}: {k} differs")
+    RESULT["shard"] = dict(devices=torch.cuda.device_count(), **res)
+    log(f"shard=True (one card) and the [card, card] split == unsplit, "
+        f"bitwise, every policy; {res}")
+
+
+def phase_train(torch, dev):
+    """``repro_torch.launch.train.main`` at the full width of smollm-135M
+    (age_noma_budget, 30 clients, 3 rounds each evaluated), every launch
+    count set to 0 just before and read just after; the history JSON
+    loads as strict JSON, the checkpoint restores bitwise into a fresh
+    model (parameters and eval loss), the fl_run ledger's manifest has
+    every key."""
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        return train_checks(torch, dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def train_checks(torch, dev, work: Path) -> dict:
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backend
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    from repro_torch.obs import ledger as L
+    runs = Path(os.environ["REPRO_RUNS_DIR"])
+    before = set(runs.glob("*_fl_run_*")) if runs.exists() else set()
+    rounds = 3
+    backend.probe.cache_clear()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rec = train.main(["--full-size", "--rounds", str(rounds),
+                      "--eval-every", "1", "--ckpt-dir", str(work / "ck"),
+                      "--out", str(work / "fl"), "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    srv = rec.pop("server")
+    hist = rec["history"]
+
+    def strict(tok):
+        raise AssertionError(f"history JSON holds {tok}")
+
+    (out_file,) = (work / "fl").glob("*.json")
+    loaded = json.loads(out_file.read_text(), parse_constant=strict)
+    if loaded["history"]["n_selected"] != hist["n_selected"]:
+        raise AssertionError("history JSON differs from the run")
+    n_params = sum(p.numel() for p in srv.model.parameters())
+    if n_params != SMOLLM_PARAMS:
+        raise AssertionError(f"train model has {n_params} parameters")
+    if any(not 1 <= k <= 10 for k in hist["n_selected"]):
+        raise AssertionError(f"train selected {hist['n_selected']}")
+    if not all(math.isfinite(x) for x in hist["loss"]):
+        raise AssertionError(f"train loss {hist['loss']}")
+    want = dict(probe_kernel=1, fedagg=rounds, planner=0,
+                pairscore=1 + sum(1 + e for e in hist["n_evicted"]))
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"train launches {counts}, want {want}")
+    acc, loss = srv.evaluate()
+    trained = {k: v.clone() for k, v in srv.model.state_dict().items()}
+    fresh = zoo.init_model(get_config("smollm_135m"), seed=123, device=dev)
+    state, manifest = ckpt.restore(str(work / "ck"), fresh.state_dict())
+    fresh.load_state_dict(state)
+    for k, v in fresh.state_dict().items():
+        if v.dtype != trained[k].dtype or not torch.equal(v, trained[k]):
+            raise AssertionError(f"checkpoint leaf {k} differs")
+    srv.model = fresh
+    if srv.evaluate() != (acc, loss) or manifest["step"] != rounds:
+        raise AssertionError("restored model evaluates differently")
+    (run_dir,) = set(runs.glob("*_fl_run_*")) - before
+    man = json.loads((run_dir / "manifest.json").read_text())
+    missing = [k for k in L.MANIFEST_KEYS if k not in man]
+    if missing or man["backend"] != "cuda":
+        raise AssertionError(f"ledger manifest: missing {missing}, "
+                             f"backend {man.get('backend')}")
+    events = [json.loads(x) for x in
+              (run_dir / "events.jsonl").read_text().splitlines()]
+    t_rounds = [e["t_wall_s"] for e in events if e["event"] == "round"]
+    RESULT["train"] = dict(
+        model="smollm_135m", n_params=n_params, dtype=str(
+            next(srv.model.parameters()).dtype), clients=30, rounds=rounds,
+        policy="age_noma_budget", wall_s=wall, run_wall_s=rec["wall_s"],
+        s_per_round=[b - a for a, b in zip([0.0] + t_rounds, t_rounds)],
+        n_selected=hist["n_selected"], n_evicted=hist["n_evicted"],
+        loss=hist["loss"], accuracy=hist["accuracy"],
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        ckpt_bytes=sum(f.stat().st_size for f in (work / "ck").iterdir()),
+        launches=counts, ledger_events=len(events))
+    log(f"train CLI (smollm-135M full width, age_noma_budget, 30 "
+        f"clients): history strict JSON, checkpoint restores bitwise, "
+        f"ledger manifest complete; {RESULT['train']}")
+    return counts
 
 
 def phase_fedagg_rows(torch, dev, srv, kinfo):
@@ -1525,6 +1867,16 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # the run ledgers go to a directory of this run's own
+    runs_dir = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    os.environ["REPRO_RUNS_DIR"] = runs_dir
+    try:
+        return run_phases(torch)
+    finally:
+        shutil.rmtree(runs_dir, ignore_errors=True)
+
+
+def run_phases(torch) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1556,6 +1908,10 @@ def main() -> int:
     phase_montecarlo(torch, dev)
     phase_budget_engine(torch, dev)
     phase_budget_montecarlo(torch, dev)
+    phase_scenarios(torch, dev)
+    phase_scenario_scale(torch, dev)
+    phase_shard(torch, dev)
+    release(torch)
     phase_small_fl(torch, dev)
     srv, _ = phase_main_path(torch, dev)
     if "--profile" in sys.argv[1:]:
@@ -1576,6 +1932,8 @@ def main() -> int:
                                         n_cells=3)
     phase_fedagg_rows(torch, dev, srv, kinfo)
     del srv
+    release(torch)
+    train_counts = phase_train(torch, dev)
     release(torch)
     profile = "--profile" in sys.argv[1:]
     hymba_counts = phase_hymba(torch, dev, profile)
@@ -1603,7 +1961,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "launches_path": path,
          "launches_budget_fl": budget_counts[name],
-         "launches_budget_cells_fl": cells_counts[name], **kinfo[name]}
+         "launches_budget_cells_fl": cells_counts[name],
+         "launches_train": train_counts[name], **kinfo[name]}
         for name, (src, rep, counts, path) in paths.items()]}
     RESULT.update(card=smi, kernels=line["kernels"])
     OUT.mkdir(exist_ok=True)

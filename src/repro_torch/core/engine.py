@@ -14,8 +14,8 @@ joint selection stage (``_joint_enum_mask``, ``_joint_swap_mask``,
 (``_assemble``, ``_LoopState``, ``_schedule_one`` as
 ``_budget_schedule``), the cell-partitioned planner
 (``_cell_member_table``, ``_multicell_schedule``, ``_merge_cells``),
-``WirelessEngine`` with ``montecarlo_rounds`` / ``_mc_loop`` /
-``_montecarlo_step``, and ``engine_schedule_to_numpy``.
+``WirelessEngine`` with ``montecarlo_rounds`` / ``montecarlo_scenario`` /
+``_mc_loop`` / ``_montecarlo_step``, and ``engine_schedule_to_numpy``.
 
 Stages (DESIGN.md section 8), all fixed-shape tensor ops, no host sync:
 
@@ -67,11 +67,20 @@ kernel) has no counterpart: it would recompute the same values.
 (B * C, cap) sub-batch (padding lanes: priority -inf, gain 0), runs the
 fast path or the budget loop on it, and merges back to client space
 (round time = max over cells, weights pooled over all selected clients).
-``shard=True`` raises ``NotImplementedError`` naming its ROADMAP queue.
+``montecarlo_scenario`` steps a scenario (sim/scenario.py) on the engine's
+device between rounds, so no (R, S, N) array exists. ``shard=True`` on
+either Monte-Carlo entry point splits the S seeds into contiguous blocks,
+one a visible CUDA device, when there is more than one and S divides by
+their count (the reference's rule), and otherwise runs as ``shard=False``.
+Each block runs in its own worker thread (the budget loop reads the host
+once an iteration), draws the whole batch's random numbers and keeps its
+rows, so the split equals the unsplit run bitwise for every policy.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -86,11 +95,6 @@ from repro_torch.core.plan import (AOU_BUCKET_EDGES, JOINT_ENUM_MAX_N,
                                    cell_capacity, enumerate_subsets)
 from repro_torch.kernels import pairscore, planner
 from repro_torch.kernels.backend import resolve_backend
-
-_LATER = {
-    "shard": "shard=True (seeds split over devices) is ROADMAP queue 2, "
-             "with run_montecarlo",
-}
 
 # the no-budget policies montecarlo_rounds resolves to a priority vector;
 # it also takes "age_noma_budget" (the age priority under the caller's
@@ -948,7 +952,8 @@ class WirelessEngine:
         ``t_budget`` runs the budget eviction loop every round
         (``policy="age_noma_budget"`` is the age priority under it).
         ``cell_seq`` ((R, S, N) int) runs the cell-partitioned planner when
-        ``FLConfig.n_cells > 1``.
+        ``FLConfig.n_cells > 1``. ``shard=True`` splits the seeds over the
+        visible CUDA devices (module docstring).
 
         Returns the reference's keys, as tensors on the engine's device:
         t_round, n_selected, max_age, t_comp_bottleneck, t_up_bottleneck,
@@ -956,42 +961,96 @@ class WirelessEngine:
         final_ages (S, N), and under multi-cell the per-round
         ``handovers`` (R, S): clients whose serving cell changed (0 in
         round 0). ``policy="random"`` draws its priorities from a
-        ``torch.Generator`` seeded with ``seed``, one draw per round (it
-        cannot reproduce the reference's ``jax.random`` stream).
+        ``torch.Generator`` seeded with ``seed``, one (S, N) draw per round
+        (it cannot reproduce the reference's ``jax.random`` stream).
         """
-        if shard:
-            raise NotImplementedError(_LATER["shard"])
         gains_seq = self._tensor(gains_seq)
         n_samples = self._tensor(n_samples)
         cpu_freq = self._tensor(cpu_freq)
         if cell_seq is not None:
-            cell_seq = torch.as_tensor(np.asarray(cell_seq), device=self.device)
-        per_round = lambda x, i: x if x.dim() == 2 else x[i]
+            if not torch.is_tensor(cell_seq):
+                cell_seq = np.asarray(cell_seq)
+            cell_seq = torch.as_tensor(cell_seq, device=self.device)
+        r, s = gains_seq.shape[:2]
 
-        def env_fn(i):
-            return (gains_seq[i], per_round(n_samples, i),
-                    per_round(cpu_freq, i),
-                    None if cell_seq is None else cell_seq[i])
+        def run(dev, block):
+            rows = (lambda x: x) if block is None else \
+                (lambda x: x[..., block[0]:block[1], :].to(dev))
+            g, ns, cf = rows(gains_seq), rows(n_samples), rows(cpu_freq)
+            cs = None if cell_seq is None else rows(cell_seq)
+            per_round = lambda x, i: x if x.dim() == 2 else x[i]
 
-        return self._mc_loop(env_fn, gains_seq.shape[0], model_bits,
-                             policy=policy, t_budget=t_budget, seed=seed,
-                             pairing=pairing, selection=selection,
-                             admission=admission)
+            def env_fn(i):
+                return (g[i], per_round(ns, i), per_round(cf, i),
+                        None if cs is None else cs[i])
+
+            return self._mc_loop(env_fn, r, model_bits, policy=policy,
+                                 t_budget=t_budget, seed=seed,
+                                 pairing=pairing, selection=selection,
+                                 admission=admission, device=dev,
+                                 block=block)
+
+        return split_seeds(run, s, shard_devices(self.device) if shard
+                           else [self.device], home=self.device)
+
+    def montecarlo_scenario(self, scenario, *, rounds: int, n_seeds: int,
+                            n_clients: int, model_bits,
+                            policy: str = "age_noma", t_budget: float = 0.0,
+                            seed: int = 0, key: Optional[int] = None,
+                            shard: bool = False,
+                            pairing: Optional[str] = None,
+                            selection: Optional[str] = None,
+                            admission: Optional[str] = None) -> dict:
+        """The fused Monte-Carlo rollout: the scenario's ``step(state,
+        seed) -> (state, env)`` advances the environment on the engine's
+        device between scheduled rounds, so no (R, S, N) array exists.
+
+        ``scenario`` is duck-typed (``repro_torch.sim.Scenario``): the
+        engine calls ``init_and_keys(key, rounds, (S, N), device=...,
+        block=...)`` and ``step(state, seed, block=...)``. ``key`` (an
+        integer) defaults to ``seed``; ``fl.rounds.run_montecarlo`` passes
+        the same key to ``Scenario.rollout``, so its ``presampled=`` path
+        gives bitwise the same result. Returns ``montecarlo_rounds``'s
+        dict.
+        """
+        key = seed if key is None else key
+
+        def run(dev, block):
+            state, seeds = scenario.init_and_keys(
+                key, rounds, (n_seeds, n_clients), device=dev, block=block)
+            box = [state]
+
+            def env_fn(i):
+                box[0], env = scenario.step(box[0], seeds[i], block=block)
+                return env.gains, env.n_samples, env.cpu_freq, env.cell
+
+            return self._mc_loop(env_fn, rounds, model_bits, policy=policy,
+                                 t_budget=t_budget, seed=seed,
+                                 pairing=pairing, selection=selection,
+                                 admission=admission, device=dev,
+                                 block=block)
+
+        return split_seeds(run, n_seeds, shard_devices(self.device) if shard
+                           else [self.device], home=self.device)
 
     def _mc_loop(self, env_fn, rounds: int, model_bits, *, policy: str,
                  t_budget: float, seed: int, pairing: Optional[str] = None,
                  selection: Optional[str] = None,
-                 admission: Optional[str] = None) -> dict:
-        """R-round rollout, a Python loop of per-round steps; ``env_fn(i)``
-        yields round i's (gains, n_samples, cpu_freq, cell-or-None)."""
+                 admission: Optional[str] = None, device: torch.device,
+                 block) -> dict:
+        """R-round rollout on ``device``, a Python loop of per-round steps;
+        ``env_fn(i)`` yields round i's (gains, n_samples, cpu_freq,
+        cell-or-None). ``block=(start, stop, total)`` marks the rows as a
+        block of a ``total``-seed batch (the random policy keeps its rows
+        of the whole batch's draw); None, the whole batch."""
         if policy not in MC_POLICIES + ("age_noma_budget",):
             raise ValueError(f"unknown montecarlo policy {policy!r} (expected "
                              f"one of {MC_POLICIES + ('age_noma_budget',)})")
         pairing = _check_pairing(pairing or self.pairing)
         selection = _check_selection(selection or self.selection)
         _check_admission(admission or self.admission)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        mb = self._tensor(model_bits)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        mb = self._tensor(model_bits).to(device)
         n_cells = self.flcfg.n_cells
         ages = part = prev_cell = None
         multicell = False
@@ -1003,22 +1062,22 @@ class WirelessEngine:
             gains, n_samples, cpu_freq, cell = env_fn(i)
             if ages is None:
                 ages = torch.ones(gains.shape, dtype=torch.float32,
-                                  device=self.device)
+                                  device=device)
                 part = torch.zeros(gains.shape, dtype=torch.float32,
-                                   device=self.device)
+                                   device=device)
                 multicell = n_cells > 1 and cell is not None
             ages, part, diag = _montecarlo_step(
                 ages, part, gains, n_samples, cpu_freq, mb, i, gen,
                 cell if multicell else None, prm=self.prm,
                 gamma=self.flcfg.age_exponent, policy=policy,
                 t_budget=float(t_budget), pairing=pairing,
-                selection=selection, n_cells=n_cells)
+                selection=selection, n_cells=n_cells, block=block)
             for k in keys:
                 out[k].append(diag[k])
             if multicell:
                 handovers.append(
                     torch.zeros(gains.shape[0], dtype=torch.int64,
-                                device=self.device) if prev_cell is None
+                                device=device) if prev_cell is None
                     else (cell != prev_cell).sum(dim=1))
                 prev_cell = cell
         out = {k: torch.stack(v) for k, v in out.items()}
@@ -1029,14 +1088,56 @@ class WirelessEngine:
         return out
 
 
+# the (S, N) leaves of a Monte-Carlo result; every other leaf is (R, S, ...)
+PER_SEED_KEYS = ("participation", "final_ages")
+
+
+def shard_devices(device: torch.device) -> list:
+    """The devices ``shard=True`` splits seeds over: every visible CUDA
+    device for an engine on a CUDA device, else the engine's device."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def split_seeds(run, s: int, devices, *, home=None) -> dict:
+    """Run ``run(device, block)`` over contiguous blocks of the S seeds,
+    block k = rows ``k S/D : (k+1) S/D`` on ``devices[k]`` (D of them),
+    each in its own worker thread, and join the blocks' results along the
+    seed axis on ``home`` (default ``devices[0]``). With one device, or S
+    not divisible by D, one ``run(home, None)``: the reference's rule."""
+    home = devices[0] if home is None else home
+    d = len(devices)
+    if d < 2 or s % d:
+        return run(home, None)
+    m = s // d
+
+    def work(k):
+        dev = devices[k]
+        ctx = torch.cuda.device(dev) if dev.type == "cuda" \
+            else contextlib.nullcontext()
+        with ctx:
+            return run(dev, (k * m, (k + 1) * m, s))
+
+    with ThreadPoolExecutor(max_workers=d) as pool:
+        outs = list(pool.map(work, range(d)))
+    return {k: torch.cat([o[k].to(home) for o in outs],
+                         dim=0 if k in PER_SEED_KEYS else 1)
+            for k in outs[0]}
+
+
 def _montecarlo_step(ages, part, gains, n_samples, cpu_freq, model_bits,
                      round_idx: int, gen, cell=None, *, prm: EngineParams,
                      gamma: float, policy: str, t_budget: float,
-                     pairing: str, selection: str, n_cells: int = 1):
+                     pairing: str, selection: str, n_cells: int = 1,
+                     block=None):
     """One Monte-Carlo round over all seeds: the policy's priority, the
     schedule (the fast path, the budget loop for ``t_budget > 0``, or the
     cell-partitioned planner for a non-None ``cell``), the age update.
-    Returns (ages, participation, the round's diag leaves plus max_age)."""
+    Under ``block`` the random policy draws the whole batch's (total, N)
+    priorities and keeps its rows. Returns (ages, participation, the
+    round's diag leaves plus max_age)."""
     s, n = gains.shape
     cap = n if cell is None else cell_capacity(n, n_cells, prm.slots)
     c = min(prm.slots, cap)
@@ -1048,7 +1149,10 @@ def _montecarlo_step(ages, part, gains, n_samples, cpu_freq, model_bits,
     elif policy == "channel":
         prio = gains
     elif policy == "random":
-        prio = torch.rand(gains.shape, generator=gen, device=gains.device)
+        total = s if block is None else block[2]
+        prio = torch.rand((total, n), generator=gen, device=gains.device)
+        if block is not None:
+            prio = prio[block[0]:block[1]]
     else:                                           # round_robin
         prio = round_robin_priority(round_idx, n, c,
                                     gains.device).expand(s, n)

@@ -2,11 +2,13 @@ from repro_torch.data.partition import ClientData, client_batches, partition_cli
 from repro_torch.data.synthetic import (
     TaskConfig,
     balanced_eval_set,
+    bayes_optimal_accuracy,
     sample_sequences,
     topic_matrices,
 )
 
 __all__ = [
     "ClientData", "client_batches", "partition_clients", "TaskConfig",
-    "balanced_eval_set", "sample_sequences", "topic_matrices",
+    "balanced_eval_set", "bayes_optimal_accuracy", "sample_sequences",
+    "topic_matrices",
 ]

@@ -64,3 +64,17 @@ def balanced_eval_set(cfg: TaskConfig, n_per_topic: int = 32) -> np.ndarray:
         seqs.append(sample_sequences(rng, mats, mix, n_per_topic, cfg))
     return np.concatenate(seqs, axis=0)
 
+
+def bayes_optimal_accuracy(cfg: TaskConfig, n_eval: int = 4096) -> float:
+    """Upper bound: accuracy of the true per-topic argmax predictor on the
+    balanced eval mix (useful to contextualize learned accuracy)."""
+    mats = topic_matrices(cfg)
+    rng = np.random.default_rng(cfg.seed + 1234)
+    acc = []
+    for t in range(cfg.n_topics):
+        mix = np.zeros(cfg.n_topics)
+        mix[t] = 1.0
+        seqs = sample_sequences(rng, mats, mix, n_eval // cfg.n_topics, cfg)
+        pred = np.argmax(mats[t][seqs[:, :-1]], axis=-1)
+        acc.append(np.mean(pred == seqs[:, 1:]))
+    return float(np.mean(acc))

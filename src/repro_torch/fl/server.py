@@ -3,9 +3,11 @@ training substrate (models/, optim/, data/), on one device.
 
 Counterpart of ``FLServer`` and ``History`` in ``src/repro/fl/server.py``
 with no update predictor: every policy (``age_noma_budget`` included),
-one cell or ``FLConfig.n_cells > 1``, under every pairing policy and both
-selection modes (``FLConfig.pairing`` / ``selection``, or the
-``pairing=`` / ``selection=`` overrides). As on the reference's engine
+every registered scenario (``FLConfig.scenario`` or the ``scenario=``
+override), one cell or ``FLConfig.n_cells > 1``, under every pairing
+policy and both selection modes (``FLConfig.pairing`` / ``selection``, or
+the ``pairing=`` / ``selection=`` overrides). ``run`` records the
+reference's ``fl_run`` ledger (obs/ledger.py). As on the reference's engine
 path, ``History.joint_swaps`` reads 0: the engine's joint refinement is
 branch-free and reports no swap count.
 
@@ -16,8 +18,11 @@ calibrates on its fp64 numpy planner; here the engine computes it (channel
 priority, no budget, the config's pairing and selection) in fp32. Per
 round:
 
-  1. step the wireless scenario -> gains/n_samples/cpu; build RoundEnv
-     (incl. the current AoU ages);
+  1. step the wireless scenario (sim/numpy_ref.py, the reference's
+     ``NumpyScenario``) -> gains/n_samples/cpu; build RoundEnv (incl. the
+     current AoU ages). Under dynamic scenarios the env's n_samples and
+     cpu only shape the scheduler's view (age priority, T_cmp): local
+     batches and aggregation weights stay tied to the fixed datasets;
   2. run the selection policy through the engine (core/engine.py) ->
      Schedule (mask, pairs, powers, rates, T_round), with the pairing
      policy and the selection mode of the config;
@@ -51,7 +56,8 @@ from repro_torch.data import (TaskConfig, balanced_eval_set, client_batches,
 from repro_torch.fl.aggregate import aggregate_deltas, apply_aggregate
 from repro_torch.fl.client import LocalTrainer
 from repro_torch.models import zoo
-from repro_torch.sim.scenario import Scenario, get_scenario_config
+from repro_torch.obs import RunLedger, json_safe
+from repro_torch.sim import NumpyScenario, get_scenario_config
 
 
 @dataclasses.dataclass
@@ -79,6 +85,13 @@ class History:
     handovers: list = dataclasses.field(default_factory=list)
     participation: Optional[np.ndarray] = None
 
+    def as_dict(self):
+        """JSON-safe dict via ``obs.json_safe``: array leaves become
+        (nested) lists, non-finite floats None (the predictor telemetry is
+        NaN, and bare NaN tokens break strict JSON parsers)."""
+        return {k: json_safe(v)
+                for k, v in dataclasses.asdict(self).items()}
+
 
 class FLServer:
     """FL over NOMA on ``device`` (default ``"cuda"``).
@@ -96,6 +109,7 @@ class FLServer:
                  seed: Optional[int] = None, device="cuda",
                  kernel_backend: Optional[str] = None,
                  params: Optional[dict] = None,
+                 scenario: Optional[str] = None,
                  pairing: Optional[str] = None,
                  selection: Optional[str] = None):
         if pairing is not None:
@@ -117,12 +131,13 @@ class FLServer:
         seed = fl.seed if seed is None else seed
         self.rng = np.random.default_rng(seed + 10_000)
 
-        # clients + wireless environment (static_iid: distances, cpu)
+        # clients + wireless environment (the numpy scenario twin)
         self.clients = partition_clients(fl, task)
         self.n_samples = np.array([c.n_samples for c in self.clients],
                                   dtype=np.float64)
-        self.scenario = Scenario(get_scenario_config(fl.scenario), nomacfg,
-                                 fl)
+        self.scenario_name = fl.scenario if scenario is None else scenario
+        self.scenario = NumpyScenario(
+            get_scenario_config(self.scenario_name), nomacfg, fl)
         self.distances, self.cpu_freq = self.scenario.init(
             self.rng, fl.n_clients, n_samples=self.n_samples)
 
@@ -248,10 +263,28 @@ class FLServer:
         return sched
 
     # -- full experiment ---------------------------------------------------
-    def run(self, rounds: Optional[int] = None, *,
-            verbose: bool = False) -> History:
-        """Run ``rounds`` FL rounds -> ``History``."""
+    def run(self, rounds: Optional[int] = None, *, verbose: bool = False,
+            ledger: Optional[RunLedger] = None) -> History:
+        """Run ``rounds`` FL rounds -> ``History``, recorded to a JSONL run
+        ledger under ``experiments/runs/`` (pass ``ledger`` to reuse an
+        open one; ``REPRO_LEDGER=0`` disables)."""
         rounds = rounds or self.fl.rounds
+        own_ledger = ledger is None
+        if own_ledger:
+            ledger = RunLedger.open("fl_run", {
+                "policy": self.policy, "rounds": rounds,
+                "engine": self.fl.engine, "scenario": self.scenario_name,
+                "predictor": self.fl.predictor,
+                "fl": dataclasses.asdict(self.fl),
+                "noma": dataclasses.asdict(self.noma),
+                "model": dataclasses.asdict(self.cfg)})
+        try:
+            return self._run(rounds, verbose, ledger)
+        finally:
+            if own_ledger:
+                ledger.close()
+
+    def _run(self, rounds: int, verbose: bool, ledger: RunLedger) -> History:
         hist = History()
         part = np.zeros(self.fl.n_clients)
         multicell = self.fl.n_cells > 1
@@ -285,9 +318,17 @@ class FLServer:
                 hist.sel_per_cell.append(diag["sel_per_cell"].tolist())
                 hist.handovers.append(int(np.sum(cell != prev_cell)))
                 prev_cell = cell.copy()
+            ledger.event(
+                "round", r=r, t_round=sched.t_round, sim_time=self.t_sim,
+                accuracy=acc, loss=loss, n_selected=hist.n_selected[-1],
+                max_age=hist.max_age[-1],
+                t_comp_bottleneck=diag["t_comp_bottleneck"],
+                t_up_bottleneck=diag["t_up_bottleneck"],
+                n_evicted=diag["n_evicted"], n_predicted=0)
             if verbose and r % self.eval_every == 0:
                 print(f"[{self.policy}] round {r:3d} t={self.t_sim:9.1f}s "
                       f"acc={acc:.4f} loss={loss:.4f} "
                       f"max_age={hist.max_age[-1]}")
         hist.participation = part
+        ledger.event("history", **hist.as_dict())
         return hist

@@ -59,7 +59,7 @@ def probe_kernel(x: torch.Tensor) -> torch.Tensor:
     code = lib.repro_probe(x.data_ptr(), y.data_ptr(), x.numel(),
                            x.device.index,
                            torch.cuda.current_stream(x.device).cuda_stream)
-    probe_kernel.launches += 1
+    build.count_launch(probe_kernel)
     build.check(code, "probe_kernel")
     return y
 

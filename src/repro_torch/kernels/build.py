@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -168,3 +169,13 @@ def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch "
                            f"(cudaGetLastError)")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to the wrapper's ``launches``, under a lock: the seed split
+    of ``shard=True`` launches kernels from one worker thread a card."""
+    with _COUNT_LOCK:
+        fn.launches += 1

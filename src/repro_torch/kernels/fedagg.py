@@ -69,7 +69,7 @@ def fedagg(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                             w.data_ptr(), out.data_ptr(), c, n,
                             u.device.index,
                             torch.cuda.current_stream(u.device).cuda_stream)
-    fedagg.launches += 1
+    build.count_launch(fedagg)
     build.check(code, "fedagg")
     return out
 

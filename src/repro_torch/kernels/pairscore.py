@@ -84,7 +84,7 @@ def pairscore(g_i: torch.Tensor, g_j: torch.Tensor, *, n0b: float,
         f32(n0b * n0b), f32(bw), f32(0.5 * bw), f32(LN2), f32(1e-30),
         int(oma), gi.device.index,
         torch.cuda.current_stream(gi.device).cuda_stream)
-    pairscore.launches += 1
+    build.count_launch(pairscore)
     build.check(code, "pairscore")
     return tuple(outs)
 

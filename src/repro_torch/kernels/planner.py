@@ -111,7 +111,7 @@ def planner_tables(g_sorted, t_cmp_sorted, model_bits, *, n0b: float,
         f32(n0b * n0b), f32(bw), f32(0.5 * bw), f32(LN2), f32(1e-30),
         f32(EPS), int(oma), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
-    planner_tables.launches += 1
+    build.count_launch(planner_tables)
     build.check(code, "planner")
     return (table.reshape(*lead, c, c), row_min.reshape(*lead, c),
             t_sw.reshape(lead))

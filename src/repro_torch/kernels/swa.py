@@ -115,7 +115,7 @@ def swa(q, k, v, *, window: int, softcap: float = 0.0):
                          int(window), float(1.0 / math.sqrt(hd)),
                          float(softcap), dev.index,
                          torch.cuda.current_stream(dev).cuda_stream)
-    swa.launches += 1
+    build.count_launch(swa)
     build.check(code, "swa")
     return out
 

@@ -162,7 +162,7 @@ def wkv6(r, k, v, w_log, u, s0=None, *, chunk: int = CHUNK):
                           lp_end.data_ptr(), _DTYPES[r.dtype], b, h, t, c,
                           n, cumsum_frame(t, chunk), dev.index,
                           torch.cuda.current_stream(dev).cuda_stream)
-    wkv6.launches += 1
+    build.count_launch(wkv6)
     build.check(code, "wkv6")
     return out, s_t
 

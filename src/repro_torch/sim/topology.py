@@ -1,5 +1,5 @@
 """Multi-cell topology: base-station layouts and nearest-BS association
-(numpy, host side).
+(numpy, host side; the association also on tensors).
 
 Copy of ``bs_layout``, ``region_radius``, ``nearest_cell`` and
 ``CellTopology`` from ``src/repro/sim/topology.py`` (DESIGN.md section
@@ -9,6 +9,8 @@ its nearest BS (Voronoi association). A client that crosses a Voronoi
 boundary is handed over: only its association index changes.
 
 Layouts are fp64, cached per ``(n_cells, layout, radius)`` and read-only.
+``nearest_cell_torch`` is the association on tensors (the device scenario,
+sim/scenario.py).
 ``n_cells == 1`` is one BS at the origin.
 """
 from __future__ import annotations
@@ -17,10 +19,12 @@ import dataclasses
 import functools
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import CELL_LAYOUTS, FLConfig, NOMAConfig
 
-__all__ = ["CellTopology", "bs_layout", "region_radius", "nearest_cell"]
+__all__ = ["CellTopology", "bs_layout", "region_radius", "nearest_cell",
+           "nearest_cell_torch"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,6 +91,16 @@ def nearest_cell(pos, bs):
     cell = np.argmin(d2, axis=-1)
     d2c = np.take_along_axis(d2, cell[..., None], axis=-1)[..., 0]
     return cell.astype(np.int32), np.sqrt(d2c)
+
+
+def nearest_cell_torch(pos, bs):
+    """``nearest_cell`` on tensors: ``pos`` (..., 2) against ``bs`` (C, 2),
+    a tensor of pos's dtype and device; ``(cell int32, dist)``. Exact ties
+    go to the lower cell index, as with ``np.argmin``."""
+    d2 = ((pos[..., None, :] - bs) ** 2).sum(-1)
+    cell = torch.argmin(d2, dim=-1)
+    d2c = d2.gather(-1, cell[..., None])[..., 0]
+    return cell.to(torch.int32), torch.sqrt(d2c)
 
 
 @dataclasses.dataclass(frozen=True)

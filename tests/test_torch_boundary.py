@@ -9,10 +9,12 @@ import torch
 from repro_torch.configs import FLConfig, NOMAConfig, get_config
 from repro_torch.core.engine import WirelessEngine
 from repro_torch.data import TaskConfig
-from repro_torch.fl import FLServer
+from repro_torch.fl import FLServer, run_montecarlo
 from repro_torch.kernels.backend import resolve_backend, resolve_device
+from repro_torch.launch import train
 from repro_torch.launch.serve import run_serve
 from repro_torch.models import zoo
+from repro_torch.sim import SCENARIOS, Scenario
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -41,7 +43,13 @@ def test_scan_sees_the_whole_port():
             "src/repro_torch/fl/server.py",
             "src/repro_torch/kernels/fedagg.py",
             "src/repro_torch/kernels/swa.py", "src/repro_torch/kernels/wkv6.py",
-            "src/repro_torch/launch/serve.py"} <= names
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/sim/processes.py",
+            "src/repro_torch/sim/numpy_ref.py",
+            "src/repro_torch/sim/scenario.py", "src/repro_torch/fl/rounds.py",
+            "src/repro_torch/obs/metrics.py", "src/repro_torch/obs/ledger.py",
+            "src/repro_torch/checkpoint/ckpt.py",
+            "src/repro_torch/launch/train.py"} <= names
 
 
 @pytest.fixture
@@ -63,6 +71,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="cuda"):
         FLServer(cfg, FLConfig(n_clients=4, samples_per_client=(8, 8)),
                  NOMAConfig(), TaskConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        Scenario(SCENARIOS["vehicular"], NOMAConfig(), FLConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_montecarlo(n_clients=4, n_seeds=1, rounds=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--rounds", "1"])
 
 
 @pytest.mark.parametrize("arch", ["hymba_1_5b", "rwkv6_7b"])

@@ -449,3 +449,74 @@ class TestBudgetAndCells:
                              device=dev).schedule_batch(*batch, 1e6, **kw)
         assert_card_matches_cpu(out, ref, "strong_weak")
         assert bool(torch.isfinite(out.rates).all())
+
+
+@pytest.mark.cuda
+class TestScenarioSweeps:
+    """The device scenario, the fused Monte-Carlo sweep, the seed split
+    and a bf16 checkpoint on the card. The run ledgers go to a temporary
+    directory (``--noconftest`` skips tests/conftest.py's REPRO_LEDGER=0)."""
+
+    @pytest.fixture
+    def dev(self, tmp_path, monkeypatch):
+        d = cuda_device()
+        monkeypatch.setenv("REPRO_RUNS_DIR", str(tmp_path / "runs"))
+        return d
+
+    @pytest.mark.parametrize("n_cells", [1, 3])
+    @pytest.mark.parametrize("scenario", ["vehicular", "pedestrian",
+                                          "iot_bursty"])
+    def test_fused_equals_presampled(self, dev, scenario, n_cells):
+        from repro_torch.configs.base import POLICIES
+        from repro_torch.fl import run_montecarlo
+        kw = dict(n_clients=32, n_seeds=8, rounds=4, model_bits=4e6,
+                  seed=1, scenario=scenario, device=dev, policies=POLICIES)
+        fl = FLConfig(n_cells=n_cells)
+        fused = run_montecarlo(NOMAConfig(), fl, **kw)
+        pre = run_montecarlo(NOMAConfig(), fl, presampled=True, **kw)
+        for p in POLICIES:
+            for k in fused[p]:
+                np.testing.assert_array_equal(fused[p][k], pre[p][k],
+                                              err_msg=f"{p}/{k}")
+            assert fused["summary"][p] == pre["summary"][p]
+
+    @pytest.mark.parametrize("policy", ["age_noma", "random",
+                                        "age_noma_budget"])
+    def test_one_card_shard(self, dev, policy):
+        """``shard=True`` on one card runs as ``shard=False``; the split
+        helper over [card, card] (two worker threads on one card) gives
+        the same result too, bitwise."""
+        from repro_torch.core import engine as E
+        from repro_torch.sim import SCENARIOS, Scenario
+        eng = WirelessEngine(NOMAConfig(), FLConfig(n_cells=3), device=dev)
+        scn = Scenario(SCENARIOS["vehicular"], NOMAConfig(),
+                       FLConfig(n_cells=3), device=dev)
+        kw = dict(rounds=3, n_seeds=8, n_clients=64, model_bits=1e6,
+                  policy=policy, seed=2,
+                  t_budget=2.0 if policy == "age_noma_budget" else 0.0)
+        whole = eng.montecarlo_scenario(scn, **kw)
+        one = eng.montecarlo_scenario(scn, shard=True, **kw)
+        orig = E.shard_devices
+        E.shard_devices = lambda d: [dev, dev]
+        try:
+            two = eng.montecarlo_scenario(scn, shard=True, **kw)
+        finally:
+            E.shard_devices = orig
+        for k in whole:
+            assert torch.equal(whole[k], one[k]), k
+            assert torch.equal(whole[k], two[k]), k
+
+    def test_bf16_checkpoint_round_trip(self, dev, tmp_path):
+        from repro_torch import checkpoint as ckpt
+        from repro_torch.configs import get_config
+        cfg = get_config("smollm_135m").reduced()
+        model = zoo.init_model(cfg, seed=3, device=dev)
+        state = {k: v.to(torch.bfloat16) for k, v in
+                 model.state_dict().items()}
+        ckpt.save(str(tmp_path / "ck"), state, step=5)
+        like = {k: torch.zeros_like(v) for k, v in state.items()}
+        back, manifest = ckpt.restore(str(tmp_path / "ck"), like)
+        assert manifest["step"] == 5
+        for k, v in state.items():
+            assert back[k].device == v.device and back[k].dtype == v.dtype
+            assert torch.equal(back[k], v), k

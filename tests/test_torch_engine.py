@@ -201,7 +201,6 @@ class TestContract:
     @pytest.mark.parametrize("method,kw,exc", [
         ("schedule_batch", dict(pairing="nope"), ValueError),
         ("schedule_batch", dict(admission="nope"), ValueError),
-        ("montecarlo_rounds", dict(shard=True), NotImplementedError),
         ("montecarlo_rounds", dict(policy="nope"), ValueError),
     ])
     def test_out_of_scope_raises(self, method, kw, exc):
@@ -214,6 +213,21 @@ class TestContract:
             else:
                 eng.montecarlo_rounds(np.stack([gains, gains]), n_samples,
                                       cpu_freq, MODEL_BITS, **kw)
+
+
+    @pytest.mark.parametrize("policy", ["age_noma", "random"])
+    def test_shard_equals_unsplit(self, policy):
+        """``shard=True`` on a host without several cards runs as
+        ``shard=False``: bitwise the same result."""
+        gains, n_samples, cpu_freq, ages = make_batch(1, 2, 16, 4)
+        eng = port_engine(4)
+        seq = np.stack([gains, gains * 0.5])
+        a, b = (eng.montecarlo_rounds(seq, n_samples, cpu_freq, MODEL_BITS,
+                                      policy=policy, shard=shard)
+                for shard in (False, True))
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
 
 
 def assert_pairs_match_or_near_tie(out, ref, k, batch):

@@ -172,7 +172,6 @@ def test_other_policies_and_driver():
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(fl=FLConfig(predictor="ann")), NotImplementedError),
-    (dict(fl=FLConfig(scenario="vehicular")), NotImplementedError),
     (dict(fl=FLConfig(scenario="nope")), ValueError),
 ])
 def test_out_of_scope_raises(kw, exc):
@@ -183,6 +182,22 @@ def test_out_of_scope_raises(kw, exc):
         FLServer(dataclasses.replace(get_config("smollm_135m").reduced(),
                                      **TINY_KW), fl, NOMAConfig(),
                  TaskConfig(**TASK_KW), device="cpu", **args)
+
+
+@pytest.mark.parametrize("in_config", [True, False])
+def test_vehicular_scenario_runs(in_config):
+    """A dynamic scenario, from the config or the ``scenario=`` override,
+    runs a round."""
+    fl = FLConfig(n_clients=4, samples_per_client=(8, 8),
+                  scenario="vehicular" if in_config else "static_iid")
+    srv = FLServer(dataclasses.replace(get_config("smollm_135m").reduced(),
+                                       **TINY_KW), fl, NOMAConfig(),
+                   TaskConfig(**TASK_KW), device="cpu",
+                   scenario=None if in_config else "vehicular")
+    assert srv.scenario_name == "vehicular"
+    assert srv.scenario.prm.mobility == "drift"
+    hist = srv.run(1)
+    assert hist.n_selected == [4] and np.isfinite(hist.loss[0])
 
 
 def test_delta_rows_and_one_weighted_sum(monkeypatch):

@@ -29,7 +29,7 @@ from repro_torch.core import engine as E
 from repro_torch.core import plan
 from repro_torch.data import TaskConfig
 from repro_torch.fl import FLServer
-from repro_torch.sim import scenario as S
+from repro_torch import sim as S
 from repro_torch.sim import topology
 
 RTOL = 2e-5
@@ -83,8 +83,8 @@ def test_scenario_matches_numpy_scenario(n_cells):
     the port consumes the rng exactly as ``NumpyScenario`` does."""
     n = 40
     ns = np.random.default_rng(9).uniform(100, 1000, n)
-    port = S.Scenario(S.get_scenario_config("static_iid"), NOMAConfig(),
-                      FLConfig(n_cells=n_cells))
+    port = S.NumpyScenario(S.get_scenario_config("static_iid"), NOMAConfig(),
+                           FLConfig(n_cells=n_cells))
     ref = NumpyScenario(get_scenario_config("static_iid"), JNOMAConfig(),
                         JFLConfig(n_cells=n_cells))
     rp, rr = np.random.default_rng(4), np.random.default_rng(4)
