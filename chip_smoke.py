@@ -58,12 +58,22 @@ Phases, each fatal on failure:
      against the unsplit run, bitwise, for every policy;
  14. ``repro_torch.launch.train.main`` at the full width of smollm-135M
      (age_noma_budget, 30 clients, 3 rounds): strict history JSON, the
-     checkpoint restored bitwise into a fresh model, the ledger manifest.
-Phases 6a, 7, 8 (each FL path), 9 (run_serve), 10 (the T=4096 prefill)
-and 14 each set every kernel's launch count to 0 just before and read it
-just after. The run ledgers go to a temporary directory
+     checkpoint restored bitwise into a fresh model, the ledger manifest;
+ 15. the update predictor: (a) the small FL run of phase 6 under
+     predictor none, stale and ann, 6 rounds from one set of weights,
+     card against CPU (selections, predictions, losses, pred_error and
+     pred_loss rtol 1e-4, final parameters atol 1e-5), and
+     ``compare_predictors`` on both; (b) ``FLServer(predictor="ann")``
+     at the full width of smollm-135M (phase 7's config, 8 rounds each
+     evaluated, tracing spans on, a (50, P) delta buffer and a (50, P)
+     store): predictions from round 1, pred_loss finite in two rounds or
+     more, the spans, the sketch's time a call, and fedagg over the
+     largest blend against its plain version, ``torch.mv`` and its bound.
+Phases 6a, 7, 8 (each FL path), 9 (run_serve), 10 (the T=4096 prefill),
+14 and 15b each set every kernel's launch count to 0 just before and
+read it just after. The run ledgers go to a temporary directory
 (``REPRO_RUNS_DIR``), removed at the end. The phases run in the order
-1-5, 6a, 6b, 11-13, 6, 7, 8, 14, 9, 10.
+1-5, 6a, 6b, 11-13, 6, 7, 8, 14, 15, 9, 10.
 
 With ``--profile`` it then times the stages of one more FL round and
 traces another with ``torch.profiler``, and traces one prefill and one
@@ -71,8 +81,9 @@ decode step in each of phases 9 and 10 (naming the swa and wkv6 kernels'
 calls and device time within the prefill). It prints a ``{"kernels": [...]}``
 line (launches of the four FL kernels from phase 8's hungarian + joint
 path, of swa from phase 9, of wkv6 from phase 10; each entry also has
-the launches of the budget FL path, of the multi-cell budget FL path and
-of the train CLI's path, ``launches_train``),
+the launches of the budget FL path, of the multi-cell budget FL path, of
+the train CLI's path, ``launches_train``, and of the predictor FL path,
+``launches_predictor_fl``),
 the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details go to
@@ -94,15 +105,10 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
-
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_S = 67e12
-PEAK_BF16_S = 989e12     # dense tensor-core rate
-PEAK_TF32_S = 495e12     # dense tensor-core rate
 
 PAIR_TOL = dict(rtol=1e-6, atol=1e-9)
 # both sides accumulate in fp32 from the same inputs, so bf16 takes a
@@ -130,10 +136,15 @@ def nvidia_smi() -> str:
 
 
 def bound(bytes_moved: float, ops: float,
-          peak_ops_s: float = PEAK_FP32_S) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, ops / peak_ops_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+          peak_ops_s: Optional[float] = None) -> tuple[float, str]:
+    """The least time (ms) of a kernel that moves ``bytes_moved`` and does
+    ``ops`` operations (at ``peak_ops_s``, default fp32), and which term
+    bounds it, from ``launch.roofline.kernel_roof_point``."""
+    from repro_torch.launch import roofline
+    rp = roofline.kernel_roof_point(
+        ops, bytes_moved, peak_flops=peak_ops_s or roofline.PEAK_FP32_S)
+    return (max(rp.t_memory, rp.t_compute) * 1e3,
+            "bytes" if rp.t_memory >= rp.t_compute else "operations")
 
 
 def time_ms(torch, fn, *, reps: int = 20, runs: int = 7) -> float:
@@ -410,6 +421,7 @@ def phase_swa(torch, dev, kinfo):
     the tensor-core kernel, fp32 the CUDA-core one."""
     import torch.nn.functional as F
     from repro_torch.kernels import swa as SW
+    from repro_torch.launch.roofline import PEAK_BF16_S
     gen = torch.Generator(device=dev).manual_seed(11)
 
     def qkv(b, s, h, kh, hd, dtype=torch.bfloat16):
@@ -531,6 +543,8 @@ def phase_wkv6(torch, dev, kinfo):
     """wkv6 against its plain version, out and s_T, fp32: max abs err <=
     1e-4 * max|out| (and the same for s_T)."""
     from repro_torch.kernels import wkv6 as WK
+    from repro_torch.launch.roofline import (PEAK_BYTES_S, PEAK_FP32_S,
+                                             PEAK_TF32_S)
     cases = {"rwkv6 prefill": ((1, 64, 4096, 64), 128, {}),
              "rwkv6 prefill, s0, w at the +4 clip":
                  ((1, 64, 4096, 64), 128, dict(clip=True)),
@@ -1060,8 +1074,8 @@ def phase_budget_montecarlo(torch, dev):
 SMALL = dict(d_model=32, d_ff=64, vocab_size=32)
 
 
-def small_fl(device, state, rounds=2, policy="age_noma", **fl_kw):
-    """A 2-layer, 32-wide FL run from the initial weights ``state`` (CPU
+def small_server(device, state, policy="age_noma", **fl_kw):
+    """A 2-layer, 32-wide FL server with the initial weights ``state`` (CPU
     and CUDA generators draw different numbers from one seed)."""
     from repro_torch.configs import FLConfig, NOMAConfig, get_config
     from repro_torch.data import TaskConfig
@@ -1073,7 +1087,12 @@ def small_fl(device, state, rounds=2, policy="age_noma", **fl_kw):
                    TaskConfig(vocab_size=32, n_topics=4, seq_len=17),
                    policy=policy, eval_every=1, device=device)
     srv.model.load_state_dict(state)
-    return srv.run(rounds)
+    return srv
+
+
+def small_fl(device, state, rounds=2, policy="age_noma", **fl_kw):
+    """``rounds`` rounds of ``small_server`` -> History."""
+    return small_server(device, state, policy, **fl_kw).run(rounds)
 
 
 def phase_small_fl(torch, dev):
@@ -1236,6 +1255,9 @@ def phase_main_path(torch, dev, label="fl", policy="age_noma",
     elif (any(not 1 <= k <= 10 for k in hist.n_selected) if budget
           else hist.n_selected != [10] * rounds):
         raise AssertionError(f"selected per round {hist.n_selected}")
+    if fl.predictor != "none" and srv.deltas.shape[0] != fl.n_clients:
+        raise AssertionError(f"{srv.deltas.shape[0]} delta rows with the "
+                             f"predictor, want {fl.n_clients}")
     if not all(math.isfinite(x) for x in hist.loss + hist.round_time):
         raise AssertionError(f"non-finite loss/round time {hist.loss}")
     if not all(torch.isfinite(p).all() for p in srv.model.parameters()):
@@ -1255,8 +1277,12 @@ def phase_main_path(torch, dev, label="fl", policy="age_noma",
         want = dict(planner=0, pairscore=rounds)
     else:
         want = {}
+    # with the predictor, one fedagg for the arrivals' mean and one for
+    # the blend a round
+    fedagg_want = rounds * (2 if fl.predictor != "none" else 1)
     if any(counts[k] != v for k, v in want.items()) \
-            or counts["fedagg"] != rounds or counts["probe_kernel"] != 1:
+            or counts["fedagg"] != fedagg_want \
+            or counts["probe_kernel"] != 1:
         raise AssertionError(f"kernel launches on the {label} path: "
                              f"{counts}")
     RESULT[label] = dict(
@@ -1270,6 +1296,12 @@ def phase_main_path(torch, dev, label="fl", policy="age_noma",
         delta_rows=srv.deltas.shape[0], launches=counts)
     if budget:
         RESULT[label]["t_budget_s"] = srv._auto_budget
+    if fl.predictor != "none":
+        finite = lambda xs: [x if math.isfinite(x) else None for x in xs]
+        RESULT[label].update(predictor=fl.predictor,
+                             n_predicted=hist.n_predicted,
+                             pred_loss=finite(hist.pred_loss),
+                             pred_error=finite(hist.pred_error))
     if fl.n_cells > 1:
         RESULT[label].update(sel_per_cell=hist.sel_per_cell,
                              handovers=hist.handovers)
@@ -1548,6 +1580,152 @@ def train_checks(torch, dev, work: Path) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the update predictor
+# ---------------------------------------------------------------------------
+
+PRED_ROUNDS = 8
+PRED_MODES = ("none", "stale", "ann")
+
+
+def phase_predictor_small(torch, dev):
+    """15a: the small FL run (phase 6's config) under each predictor mode,
+    6 rounds from one set of initial weights on the card and on the CPU:
+    selections and predictions counted alike; losses, pred_error and
+    pred_loss to rtol 1e-4; final parameters to atol 1e-5 (the CPU tests'
+    tiers). Then ``compare_predictors`` on both devices (each drawing its
+    own weights): every mode selects the same clients on both."""
+    from repro_torch.configs import FLConfig, NOMAConfig, get_config
+    from repro_torch.data import TaskConfig
+    from repro_torch.fl import compare_predictors
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(get_config("smollm_135m").reduced(), **SMALL)
+    state = zoo.init_model(cfg, seed=0, device="cpu").state_dict()
+    rounds = 6
+    res = {}
+    for mode in PRED_MODES:
+        srv = {d: small_server(d, state, predictor=mode)
+               for d in ("cpu", dev)}
+        hist = {d: s.run(rounds) for d, s in srv.items()}
+        h_card, h_cpu = hist[dev], hist["cpu"]
+        name = f"predictor {mode}"
+        check_small_fl(h_card, h_cpu, name)
+        if h_card.n_predicted != h_cpu.n_predicted:
+            raise AssertionError(f"{name}: n_predicted card "
+                                 f"{h_card.n_predicted} vs CPU "
+                                 f"{h_cpu.n_predicted}")
+        for key in ("loss", "pred_error", "pred_loss"):
+            for a, b in zip(getattr(h_card, key), getattr(h_cpu, key)):
+                if math.isnan(a) != math.isnan(b) or not (
+                        math.isnan(a) or math.isclose(a, b, rel_tol=1e-4)):
+                    raise AssertionError(f"{name}: {key} card {a} vs CPU "
+                                         f"{b}")
+        err = max(float((p.detach().float().cpu() - q.detach().float())
+                        .abs().max())
+                  for p, q in zip(srv[dev].model.parameters(),
+                                  srv["cpu"].model.parameters()))
+        if err > 1e-5:
+            raise AssertionError(f"{name}: final parameters {err} apart")
+        if mode != "none" and not (max(h_card.n_predicted) > 0 and any(
+                math.isfinite(x) for x in h_card.pred_error)):
+            raise AssertionError(f"{name}: no prediction "
+                                 f"{h_card.n_predicted}")
+        res[mode] = dict(n_predicted=h_card.n_predicted,
+                         pred_error=[x if math.isfinite(x) else None
+                                     for x in h_card.pred_error],
+                         pred_loss=[x if math.isfinite(x) else None
+                                    for x in h_card.pred_loss],
+                         loss=h_card.loss, params_max_abs_err=err)
+    base = res["none"]
+    runs = {d: compare_predictors(
+        cfg, FLConfig(n_clients=8, local_batch=8, lr=0.2,
+                      samples_per_client=(24, 48)),
+        NOMAConfig(n_subchannels=2),
+        TaskConfig(vocab_size=32, n_topics=4, seq_len=17), rounds=rounds,
+        device=d) for d in ("cpu", dev)}
+    for m in PRED_MODES:
+        check_small_fl(runs[dev][m], runs["cpu"][m], f"compare/{m}",
+                       loss=False)
+        if not ((runs[dev][m].participation
+                 == runs[dev]["none"].participation).all()
+                and runs[dev][m].n_predicted == runs["cpu"][m].n_predicted):
+            raise AssertionError(f"compare_predictors/{m} is not paired")
+    res["compare_predictors"] = {m: runs[dev][m].n_predicted
+                                 for m in PRED_MODES}
+    RESULT["predictor_small"] = res
+    log(f"small FL predictor runs (6 rounds): card == CPU (selections, "
+        f"n_predicted; loss, pred_error, pred_loss rtol 1e-4; parameters "
+        f"atol 1e-5), compare_predictors paired; none {base['loss']}; "
+        f"{res}")
+
+
+def phase_predictor(torch, dev, kinfo):
+    """15b: ``FLServer(predictor="ann")`` at the full width of
+    smollm-135M (phase 7's config, ``PRED_ROUNDS`` rounds each evaluated,
+    spans on), the launch counts set to 0 just before and read just
+    after; then the sketch's time a call and fedagg over the largest blend
+    it ran, against its plain version, ``torch.mv`` and its bound."""
+    from repro_torch.kernels import fedagg as F
+    from repro_torch.obs import trace
+    with trace.tracing() as tr:
+        srv, counts = phase_main_path(torch, dev, "fl_predictor",
+                                      rounds=PRED_ROUNDS, predictor="ann")
+    res = RESULT["fl_predictor"]
+    n_pred = res["n_predicted"]
+    finite_loss = [x for x in res["pred_loss"] if x is not None]
+    if n_pred[0] != 0 or min(n_pred[1:]) <= 0 or len(finite_loss) < 2:
+        raise AssertionError(f"predictor path: n_predicted {n_pred}, "
+                             f"pred_loss {res['pred_loss']}")
+    spans = {r["name"]: r for r in trace.summarize(tr.spans)}
+    res["spans"] = {k: dict(count=v["count"], total_s=v["total_s"],
+                            mean_s=v["mean_s"], max_s=v["max_s"])
+                    for k, v in spans.items()}
+    pred = srv.predictor
+    res["sketch_ms"] = time_ms(torch, lambda: pred.sketch(srv.deltas[0]),
+                               reps=3, runs=3)
+    res["sketch_device_ms"] = device_ms(
+        torch, lambda: pred.sketch(srv.deltas[0]), reps=3)
+    # the vector, its buckets (int32) and signs read once; a multiply
+    # and an add a coordinate
+    p_n = srv.deltas.shape[1]
+    res["sketch_bound_ms"], res["sketch_bound_by"] = bound(
+        3 * p_n * 4 + pred.embed_dim * 4, 2 * p_n)
+    res["store_gib"] = (pred.store.numel() * 4) / 2 ** 30
+    # fedagg over the largest blend: the arrivals and M_max predictions
+    c = 10 + max(n_pred)
+    u = srv.deltas[:c]
+    n = u.shape[1]
+    w = torch.rand(c, generator=torch.Generator(device=dev).manual_seed(4),
+                   device=dev)
+    w = w / w.sum()
+    out, ref = F.fedagg(u, w), F.fedagg_plain(u, w)
+    tol = FEDAGG_TOL["float32"]
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+    err = max_err(torch, [out], [ref])
+    del out, ref
+    b_ms, b_by = bound(c * n * 4 + c * 4 + n * 4, 2 * c * n)
+    kinfo["fedagg"]["at_predictor_blend_shape"] = blend = dict(
+        shape=[c, n], max_abs_err=err,
+        ms=time_ms(torch, lambda: F.fedagg(u, w), reps=5, runs=5),
+        device_ms=device_ms(torch, lambda: F.fedagg(u, w), reps=5),
+        plain_ms=time_ms(torch, lambda: F.fedagg_plain(u, w), reps=2,
+                         runs=3),
+        library_ms=time_ms(torch, lambda: torch.mv(u.t(), w), reps=5,
+                           runs=5),
+        library_device_ms=device_ms(torch, lambda: torch.mv(u.t(), w),
+                                    reps=5),
+        bound_ms=b_ms, bound_by=b_by, tolerance="fp32 1e-6")
+    shown = {k: res["spans"][k] for k in ("server.round",
+                                           "predictor.observe",
+                                           "predictor.predict",
+                                           "server.blend")}
+    log(f"predictor FL path spans: {shown}; sketch {res['sketch_ms']} ms "
+        f"a call ({res['sketch_device_ms']} device, bound "
+        f"{res['sketch_bound_ms']}); fedagg {(c, n)} (the blend): {blend}")
+    del srv, pred, u
+    return counts
+
+
 def phase_fedagg_rows(torch, dev, srv, kinfo):
     """fedagg over the multi-cell FL path's whole delta buffer (its rows
     are the most clients three cells can select), against its plain
@@ -1564,10 +1742,13 @@ def phase_fedagg_rows(torch, dev, srv, kinfo):
     kinfo["fedagg"]["at_budget_cells_shape"] = res = dict(
         shape=[c, n], max_abs_err=max_err(torch, [out], [ref]),
         ms=time_ms(torch, lambda: F.fedagg(u, w), reps=5, runs=5),
+        device_ms=device_ms(torch, lambda: F.fedagg(u, w), reps=5),
         plain_ms=time_ms(torch, lambda: F.fedagg_plain(u, w), reps=2,
                          runs=3),
         library_ms=time_ms(torch, lambda: torch.mv(u.t(), w), reps=5,
                            runs=5),
+        library_device_ms=device_ms(torch, lambda: torch.mv(u.t(), w),
+                                    reps=5),
         bound_ms=b_ms, bound_by=b_by)
     log(f"fedagg {(c, n)} (the multi-cell delta buffer): {res}")
 
@@ -1935,6 +2116,9 @@ def run_phases(torch) -> int:
     release(torch)
     train_counts = phase_train(torch, dev)
     release(torch)
+    phase_predictor_small(torch, dev)
+    predictor_counts = phase_predictor(torch, dev, kinfo)
+    release(torch)
     profile = "--profile" in sys.argv[1:]
     hymba_counts = phase_hymba(torch, dev, profile)
     rwkv_counts = phase_rwkv(torch, dev, profile)
@@ -1962,7 +2146,8 @@ def run_phases(torch) -> int:
          "launches": counts[name], "launches_path": path,
          "launches_budget_fl": budget_counts[name],
          "launches_budget_cells_fl": cells_counts[name],
-         "launches_train": train_counts[name], **kinfo[name]}
+         "launches_train": train_counts[name],
+         "launches_predictor_fl": predictor_counts[name], **kinfo[name]}
         for name, (src, rep, counts, path) in paths.items()]}
     RESULT.update(card=smi, kernels=line["kernels"])
     OUT.mkdir(exist_ok=True)

@@ -11,10 +11,19 @@ serves every ported family: the dense tree (``attn``, ``mlp``, ``ln1``,
 ``ln2``), the hybrid tree (adds ``ssm``, ``ln_attn_o``, ``ln_ssm_o``) and
 the ssm (RWKV6) tree (``tm``, ``cm``, ``ln1``, ``ln2``). Loading the result
 with ``load_state_dict`` (strict) checks every name and shape.
+
+A flat update vector has two layouts. The port's (fl/aggregate.py) is
+``model.parameters()`` order, one layer after another. The reference's is
+``ravel_pytree`` order: its tree's leaves in sorted-key order, each
+stacked ``blocks`` leaf (L, ...) whole. ``ravel_segments`` maps one onto
+the other, so the update predictor's count-sketch, drawn per coordinate in
+the reference's order, lands on the same coordinates in the port's.
+``predictor_from_numpy`` carries the reference predictor's MLP weights.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
+from math import prod
 
 import numpy as np
 import torch
@@ -61,3 +70,62 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
         raise ValueError(f"tree has {n_blocks} layers, config "
                          f"{cfg.name!r} has {cfg.n_layers}")
     return OrderedDict((k, to_tensor(v, device)) for k, v in flat.items())
+
+
+def ravel_segments(named_shapes) -> list:
+    """``[(port_offset, ravel_offset, size), ...]``, one per parameter, from
+    ``(name, shape)`` pairs in the port's order (``(n, p.shape) for n, p in
+    model.named_parameters()``). Each parameter is one contiguous run in
+    both layouts: ``blocks.{i}.{sub}`` is layer i of the reference's
+    stacked leaf ``blocks/{sub}``, every other name a leaf of its own."""
+    named_shapes = [(n, tuple(s)) for n, s in named_shapes]
+    leaves: dict = {}        # reference leaf path -> (layer size, layers)
+    where = []               # per port parameter: (leaf path, layer)
+    for name, shape in named_shapes:
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            path, layer = ("blocks", *parts[2:]), int(parts[1])
+        else:
+            path, layer = tuple(parts), 0
+        size, layers = leaves.get(path, (prod(shape), 0))
+        leaves[path] = (size, max(layers, layer + 1))
+        where.append((path, layer))
+    start, off = {}, 0
+    for path in sorted(leaves):
+        start[path] = off
+        size, layers = leaves[path]
+        off += size * layers
+    segs, port_off = [], 0
+    for (path, layer), (_, shape) in zip(where, named_shapes):
+        size = leaves[path][0]
+        segs.append((port_off, start[path] + layer * size, size))
+        port_off += size
+    return segs
+
+
+def _permuted(x, segments, port_to_ravel: bool):
+    out = torch.empty_like(x) if torch.is_tensor(x) else np.empty_like(x)
+    for p, r, n in segments:
+        if port_to_ravel:
+            out[r:r + n] = x[p:p + n]
+        else:
+            out[p:p + n] = x[r:r + n]
+    return out
+
+
+def to_port_order(x, segments):
+    """A flat (P, ...) array or tensor in ravel order -> port order."""
+    return _permuted(x, segments, port_to_ravel=False)
+
+
+def to_ravel_order(x, segments):
+    """A flat (P, ...) array or tensor in port order -> ravel order."""
+    return _permuted(x, segments, port_to_ravel=True)
+
+
+def predictor_from_numpy(net: dict,
+                         device="cpu") -> "OrderedDict[str, torch.Tensor]":
+    """State dict for ``fl.predictor.MLP`` from the reference's MLP weights
+    (``init_mlp`` in ``src/repro/fl/predictor.py``, as numpy arrays)."""
+    return OrderedDict((k, to_tensor(np.asarray(net[k], np.float32), device))
+                       for k in ("w1", "b1", "w2", "b2", "w3", "b3"))

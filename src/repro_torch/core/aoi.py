@@ -1,7 +1,7 @@
 """Age-of-Update (AoU) state machine — the paper's selection signal.
 
-Copy of the state machine in ``src/repro/core/aoi.py`` (numpy, no
-framework); the predictor's staleness helpers are ROADMAP queue 3.
+Copy of ``src/repro/core/aoi.py`` (numpy, no framework): the state
+machine and the update predictor's staleness helpers.
 
 A_n(t) counts rounds since client n's update was last aggregated:
 reset to 1 on selection, +1 otherwise. Ages start at 1 so every client has
@@ -29,3 +29,20 @@ def max_age(ages: np.ndarray) -> int:
 
 def mean_age(ages: np.ndarray) -> float:
     return float(np.mean(ages))
+
+
+def age_discount(ages: np.ndarray, rho: float) -> np.ndarray:
+    """Geometric staleness discount rho^(A_n - 1): 1.0 for a fresh update,
+    fading with every round a client goes unserved. Used to down-weight
+    predicted updates in the aggregation blend."""
+    return np.asarray(rho, np.float64) ** (np.asarray(ages) - 1)
+
+
+def staleness_features(ages: np.ndarray, data_weights: np.ndarray
+                       ) -> np.ndarray:
+    """(N, 2) per-round staleness features for the server-side update
+    predictor: log-staleness log1p(A_n - 1) and the mean-normalized data
+    weight N * w_n (both O(1)-scaled for MLP input)."""
+    a = np.log1p(np.asarray(ages, np.float64) - 1.0)
+    w = np.asarray(data_weights, np.float64) * len(ages)
+    return np.stack([a, w], axis=-1)

@@ -75,6 +75,14 @@ their count (the reference's rule), and otherwise runs as ``shard=False``.
 Each block runs in its own worker thread (the budget loop reads the host
 once an iteration), draws the whole batch's random numbers and keeps its
 rows, so the split equals the unsplit run bitwise for every policy.
+
+Tracing spans (obs/trace.py, off by default) mark the reference's sites:
+``engine.schedule_batch``, ``engine.mc_loop``, and the stages the
+reference's numpy planner marks (``plan.admit``, ``plan.joint``,
+``plan.finalize``, ``plan.evict``, ``plan.multicell``) at their
+counterparts here. A live span fences its stage's outputs; a split
+Monte-Carlo run traces from several threads, which one tracer does not
+keep apart.
 """
 from __future__ import annotations
 
@@ -95,6 +103,7 @@ from repro_torch.core.plan import (AOU_BUCKET_EDGES, JOINT_ENUM_MAX_N,
                                    cell_capacity, enumerate_subsets)
 from repro_torch.kernels import pairscore, planner
 from repro_torch.kernels.backend import resolve_backend
+from repro_torch.obs import trace
 
 # the no-budget policies montecarlo_rounds resolves to a priority vector;
 # it also takes "age_noma_budget" (the age priority under the caller's
@@ -508,15 +517,24 @@ def _fast_schedule_batch(priority, gains, t_cmp, n_samples, model_bits,
     """Greedy admission -> finish; ``selection="joint"`` also refines the
     admitted set and keeps the refined schedule only where strictly
     faster under the active pairing policy."""
-    cand = _admit(priority, gains, c)
-    out = _fast_finish(cand, gains, t_cmp, n_samples, model_bits, prm, oma,
-                       c, pairing)
-    if selection == "joint" and 0 < c < gains.shape[-1]:
-        refined = _joint_refine_mask(cand, gains, t_cmp, model_bits, prm,
-                                     oma, c)
-        out = _pick_faster(_fast_finish(refined, gains, t_cmp, n_samples,
-                                        model_bits, prm, oma, c, pairing),
-                           out)
+    n = gains.shape[-1]
+    with trace.span("plan.admit", n=n, slots=c) as sp:
+        cand = _admit(priority, gains, c)
+        sp.fence(cand)
+    with trace.span("plan.finalize", n=n) as sp:
+        out = _fast_finish(cand, gains, t_cmp, n_samples, model_bits, prm,
+                           oma, c, pairing)
+        sp.fence(out.t_round)
+    if selection == "joint" and 0 < c < n:
+        with trace.span("plan.joint", n=n) as sp:
+            refined = _joint_refine_mask(cand, gains, t_cmp, model_bits,
+                                         prm, oma, c)
+            sp.fence(refined)
+        with trace.span("plan.finalize", n=n) as sp:
+            out = _pick_faster(_fast_finish(refined, gains, t_cmp,
+                                            n_samples, model_bits, prm, oma,
+                                            c, pairing), out)
+            sp.fence(out.t_round)
     return out
 
 
@@ -672,21 +690,27 @@ def _budget_schedule(priority, gains, t_cmp, n_samples, model_bits,
     n_pairs = max((c + 1) // 2, 1)
     rows = torch.arange(b, device=dev)
     pos = torch.arange(n, device=dev)
-    order = _admission_order(priority, gains)
-    cand0 = torch.zeros((b, n), dtype=torch.bool, device=dev).scatter_(
-        1, order[:, :c], True)
+    with trace.span("plan.admit", n=n, slots=c) as sp:
+        order = _admission_order(priority, gains)
+        cand0 = torch.zeros((b, n), dtype=torch.bool, device=dev).scatter_(
+            1, order[:, :c], True)
+        sp.fence(cand0)
 
     def sched_of(cand):
-        strong, weak, rates, powers = _assemble(
-            cand, gains, t_cmp, model_bits, prm, oma, n_pairs, pairing)
-        t_com = model_bits[:, None] / torch.clamp(rates, min=1e-9)
-        tot = torch.where(cand, t_cmp + t_com, 0.0)
+        with trace.span("plan.finalize", n=n) as sp:
+            strong, weak, rates, powers = _assemble(
+                cand, gains, t_cmp, model_bits, prm, oma, n_pairs, pairing)
+            t_com = model_bits[:, None] / torch.clamp(rates, min=1e-9)
+            tot = torch.where(cand, t_cmp + t_com, 0.0)
+            sp.fence(tot)
         return strong, weak, rates, powers, t_com, tot, tot.amax(dim=1)
 
     s0 = sched_of(cand0)
     if selection == "joint" and 0 < c < n:
-        refined = _joint_refine_mask(cand0, gains, t_cmp, model_bits, prm,
-                                     oma, c)
+        with trace.span("plan.joint", n=n) as sp:
+            refined = _joint_refine_mask(cand0, gains, t_cmp, model_bits,
+                                         prm, oma, c)
+            sp.fence(refined)
         s_joint = sched_of(refined)
         use = s_joint[6] < s0[6]            # never-worse guard (realized)
         cand0 = torch.where(use[:, None], refined, cand0)
@@ -702,19 +726,21 @@ def _budget_schedule(priority, gains, t_cmp, n_samples, model_bits,
         if iters == n:
             raise RuntimeError("budget loop ran past its n-iteration bound")
         iters += 1
-        worst = st.tot.argmax(dim=1)
-        cand = st.cand.clone()
-        cand[rows, worst] = False
-        evicted = st.evicted.clone()
-        evicted[rows, worst] = True
-        elig = (~cand.gather(1, order) & ~evicted.gather(1, order)
-                & (pos >= st.qptr[:, None]))
-        fill = elig.any(dim=1)
-        at = elig.to(torch.uint8).argmax(dim=1)
-        nxt = torch.where(fill, order.gather(1, at[:, None])[:, 0], n)
-        cand = cand | _drop_scatter(n, nxt[:, None],
-                                    torch.ones_like(cand[:, :1]))
-        qptr = torch.where(fill, at + 1, st.qptr)
+        with trace.span("plan.evict", n=n) as sp:
+            worst = st.tot.argmax(dim=1)
+            cand = st.cand.clone()
+            cand[rows, worst] = False
+            evicted = st.evicted.clone()
+            evicted[rows, worst] = True
+            elig = (~cand.gather(1, order) & ~evicted.gather(1, order)
+                    & (pos >= st.qptr[:, None]))
+            fill = elig.any(dim=1)
+            at = elig.to(torch.uint8).argmax(dim=1)
+            nxt = torch.where(fill, order.gather(1, at[:, None])[:, 0], n)
+            cand = cand | _drop_scatter(n, nxt[:, None],
+                                        torch.ones_like(cand[:, :1]))
+            qptr = torch.where(fill, at + 1, st.qptr)
+            sp.fence(cand)
         s = sched_of(cand)
         done = (s[6] <= t_budget) | (cand.sum(dim=1) <= 1)
         new = _LoopState(cand, evicted, qptr, done, *s)
@@ -766,29 +792,33 @@ def _multicell_schedule(priority, gains, t_cmp, n_samples, model_bits,
     math gives them rate 0, and the merge drops them. A cell with fewer
     real members than slots admits padding on the fast path, as the
     reference engine does (DESIGN.md section 10)."""
-    b, n = gains.shape
-    tbl = _cell_member_table(cell, n_cells, cap)
-    valid = tbl < n
-    flat = tbl.clamp(max=n - 1).reshape(b, n_cells * cap)
+    with trace.span("plan.multicell", n=gains.shape[1],
+                    n_cells=n_cells) as sp:
+        b, n = gains.shape
+        tbl = _cell_member_table(cell, n_cells, cap)
+        valid = tbl < n
+        flat = tbl.clamp(max=n - 1).reshape(b, n_cells * cap)
 
-    def gather(x, fill):
-        g = x.gather(1, flat).reshape(b, n_cells, cap)
-        return torch.where(valid, g, fill).reshape(b * n_cells, cap)
+        def gather(x, fill):
+            g = x.gather(1, flat).reshape(b, n_cells, cap)
+            return torch.where(valid, g, fill).reshape(b * n_cells, cap)
 
-    c_prio = gather(priority, -torch.inf)
-    c_g = gather(gains, 0.0)
-    c_tc = gather(t_cmp, 0.0)
-    c_ns = gather(n_samples, 0.0)
-    c_mb = model_bits.repeat_interleave(n_cells)
-    c = min(prm.slots, cap)
-    if t_budget is not None:
-        sub = _budget_schedule(c_prio, c_g, c_tc, c_ns, c_mb,
-                               t_budget.repeat_interleave(n_cells), prm, oma,
-                               c, pairing, selection)
-    else:
-        sub = _fast_schedule_batch(c_prio, c_g, c_tc, c_ns, c_mb, prm, oma,
-                                   c, pairing, selection)
-    return _merge_cells(sub, tbl, valid, t_cmp, n_samples, model_bits)
+        c_prio = gather(priority, -torch.inf)
+        c_g = gather(gains, 0.0)
+        c_tc = gather(t_cmp, 0.0)
+        c_ns = gather(n_samples, 0.0)
+        c_mb = model_bits.repeat_interleave(n_cells)
+        c = min(prm.slots, cap)
+        if t_budget is not None:
+            sub = _budget_schedule(c_prio, c_g, c_tc, c_ns, c_mb,
+                                   t_budget.repeat_interleave(n_cells), prm,
+                                   oma, c, pairing, selection)
+        else:
+            sub = _fast_schedule_batch(c_prio, c_g, c_tc, c_ns, c_mb, prm,
+                                       oma, c, pairing, selection)
+        out = _merge_cells(sub, tbl, valid, t_cmp, n_samples, model_bits)
+        sp.fence(out.t_round)
+        return out
 
 
 def _merge_cells(sub: EngineSchedule, tbl, valid, t_cmp, n_samples,
@@ -879,6 +909,28 @@ class WirelessEngine:
         ``n_cells > 1`` (default ``FLConfig.n_cells``) runs the
         cell-partitioned planner; ``n_cells == 1`` ignores ``cell``.
         """
+        b, n = np.shape(gains)
+        no_budget = (isinstance(t_budget, (int, float))
+                     and float(t_budget) <= 0.0)
+        sig = ("schedule_batch", b, n, no_budget, oma,
+               pairing or self.pairing, selection or self.selection,
+               cell is not None, priority is None, str(self.device))
+        with trace.span("engine.schedule_batch", b=b, n=n,
+                        cold=trace.cold(sig)) as sp:
+            out = self._schedule_batch_impl(
+                gains, n_samples, cpu_freq, ages, model_bits,
+                t_budget=t_budget, oma=oma, priority=priority,
+                pairing=pairing, selection=selection, admission=admission,
+                cell=cell, n_cells=n_cells)
+            sp.fence(out.t_round)
+            return out
+
+    def _schedule_batch_impl(self, gains, n_samples, cpu_freq, ages,
+                             model_bits, *, t_budget, oma: bool, priority,
+                             pairing: Optional[str],
+                             selection: Optional[str],
+                             admission: Optional[str], cell,
+                             n_cells: Optional[int]) -> EngineSchedule:
         pairing = _check_pairing(pairing or self.pairing)
         selection = _check_selection(selection or self.selection)
         _check_admission(admission or self.admission)
@@ -1058,28 +1110,35 @@ class WirelessEngine:
                 "t_up_bottleneck", "n_evicted", "aou_hist")
         out = {k: [] for k in keys}
         handovers = []
-        for i in range(rounds):
-            gains, n_samples, cpu_freq, cell = env_fn(i)
-            if ages is None:
-                ages = torch.ones(gains.shape, dtype=torch.float32,
-                                  device=device)
-                part = torch.zeros(gains.shape, dtype=torch.float32,
-                                   device=device)
-                multicell = n_cells > 1 and cell is not None
-            ages, part, diag = _montecarlo_step(
-                ages, part, gains, n_samples, cpu_freq, mb, i, gen,
-                cell if multicell else None, prm=self.prm,
-                gamma=self.flcfg.age_exponent, policy=policy,
-                t_budget=float(t_budget), pairing=pairing,
-                selection=selection, n_cells=n_cells, block=block)
-            for k in keys:
-                out[k].append(diag[k])
-            if multicell:
-                handovers.append(
-                    torch.zeros(gains.shape[0], dtype=torch.int64,
-                                device=device) if prev_cell is None
-                    else (cell != prev_cell).sum(dim=1))
-                prev_cell = cell
+        with trace.span("engine.mc_loop", rounds=rounds,
+                        policy=policy) as sp:
+            for i in range(rounds):
+                gains, n_samples, cpu_freq, cell = env_fn(i)
+                if ages is None:
+                    ages = torch.ones(gains.shape, dtype=torch.float32,
+                                      device=device)
+                    part = torch.zeros(gains.shape, dtype=torch.float32,
+                                       device=device)
+                    multicell = n_cells > 1 and cell is not None
+                    s, n = gains.shape
+                    sp.note(s=s, n=n, cold=trace.cold(
+                        ("mc", s, n, policy, pairing, selection,
+                         float(t_budget), multicell, str(device))))
+                ages, part, diag = _montecarlo_step(
+                    ages, part, gains, n_samples, cpu_freq, mb, i, gen,
+                    cell if multicell else None, prm=self.prm,
+                    gamma=self.flcfg.age_exponent, policy=policy,
+                    t_budget=float(t_budget), pairing=pairing,
+                    selection=selection, n_cells=n_cells, block=block)
+                for k in keys:
+                    out[k].append(diag[k])
+                if multicell:
+                    handovers.append(
+                        torch.zeros(gains.shape[0], dtype=torch.int64,
+                                    device=device) if prev_cell is None
+                        else (cell != prev_cell).sum(dim=1))
+                    prev_cell = cell
+            sp.fence(ages)
         out = {k: torch.stack(v) for k, v in out.items()}
         out["participation"] = part
         out["final_ages"] = ages

@@ -4,9 +4,8 @@ every selection/RA policy over S environment seeds, the scenario stepping
 on the engine's device between batched rounds.
 
 Counterpart of ``src/repro/fl/rounds.py``: ``run_experiment``,
-``compare_policies``, ``run_montecarlo``, ``time_to_accuracy`` and
-``MC_POLICIES``. ``compare_predictors`` raises: the update predictor is
-ROADMAP queue 3.
+``compare_policies``, ``compare_predictors``, ``run_montecarlo``,
+``time_to_accuracy`` and ``MC_POLICIES``.
 """
 from __future__ import annotations
 
@@ -34,11 +33,12 @@ def run_experiment(model_cfg: ModelConfig, fl: FLConfig,
                    seed: Optional[int] = None, device="cuda",
                    kernel_backend: Optional[str] = None,
                    pairing: Optional[str] = None,
-                   selection: Optional[str] = None) -> History:
+                   selection: Optional[str] = None,
+                   predictor: Optional[str] = None) -> History:
     server = FLServer(model_cfg, fl, nomacfg, task, policy=policy,
                       seed=seed, device=device,
                       kernel_backend=kernel_backend, pairing=pairing,
-                      selection=selection)
+                      selection=selection, predictor=predictor)
     return server.run(rounds, verbose=verbose)
 
 
@@ -46,19 +46,32 @@ def compare_policies(model_cfg: ModelConfig, fl: FLConfig,
                      nomacfg: NOMAConfig, task: TaskConfig, *,
                      policies=POLICIES, rounds: Optional[int] = None,
                      verbose: bool = False, seed: Optional[int] = None,
+                     predictor: Optional[str] = None,
                      device="cuda") -> dict[str, History]:
     """Same seed => identical client data/topology across policies; only
     the selection/RA differs (paired comparison, as the paper's figures
     do)."""
     return {p: run_experiment(model_cfg, fl, nomacfg, task, p,
                               rounds=rounds, verbose=verbose, seed=seed,
-                              device=device)
+                              predictor=predictor, device=device)
             for p in policies}
 
 
-def compare_predictors(*args, **kwargs):
-    raise NotImplementedError(
-        "compare_predictors needs the update predictor, ROADMAP queue 3")
+def compare_predictors(model_cfg: ModelConfig, fl: FLConfig,
+                       nomacfg: NOMAConfig, task: TaskConfig, *,
+                       policy: str = "age_noma",
+                       modes=("none", "stale", "ann"),
+                       rounds: Optional[int] = None, verbose: bool = False,
+                       seed: Optional[int] = None,
+                       device="cuda") -> dict[str, History]:
+    """A/B the update predictor under ONE selection policy. Same seed =>
+    identical topology, gains, selections and local batches across modes
+    (the predictor never touches the server rng), so differences are
+    purely the blended predicted updates."""
+    return {m: run_experiment(model_cfg, fl, nomacfg, task, policy,
+                              rounds=rounds, verbose=verbose, seed=seed,
+                              predictor=m, device=device)
+            for m in modes}
 
 
 def run_montecarlo(nomacfg: Optional[NOMAConfig] = None,

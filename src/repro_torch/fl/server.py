@@ -1,8 +1,8 @@
 """FL server: round orchestration joining the scheduler (core/) to the
 training substrate (models/, optim/, data/), on one device.
 
-Counterpart of ``FLServer`` and ``History`` in ``src/repro/fl/server.py``
-with no update predictor: every policy (``age_noma_budget`` included),
+Counterpart of ``FLServer`` and ``History`` in ``src/repro/fl/server.py``:
+every policy (``age_noma_budget`` included),
 every registered scenario (``FLConfig.scenario`` or the ``scenario=``
 override), one cell or ``FLConfig.n_cells > 1``, under every pairing
 policy and both selection modes (``FLConfig.pairing`` / ``selection``, or
@@ -30,13 +30,20 @@ round:
      row of a (C, P) fp32 buffer (C: the most clients the planner can
      select, the sum over cells of min(slots, cell capacity), at most
      ``n_clients``);
-  4. FedAvg-aggregate the rows (one fedagg launch) and apply;
-  5. advance the ages and the simulated wall clock by T_round.
+  4. with ``predictor`` "stale" or "ann" (fl/predictor.py): train the
+     server-side ANN on the arrivals, write a predicted delta for each
+     unselected client with history into the buffer rows after the
+     arrivals (the buffer then has ``n_clients`` rows), and weight them
+     ``n_c * pred_blend * pred_discount^(A_c - 1)`` (one more fedagg
+     launch: the arrivals' mean, which the ANN's predictions mix in);
+  5. FedAvg-aggregate the rows (one fedagg launch) and apply;
+  6. advance the ages and the simulated wall clock by T_round.
 
 ``self.rng`` is consumed in exactly the reference's order (scenario init;
 then per round the scenario step and each selected client's batches in
 ascending client order), so a seed gives the same selections in both
-packages.
+packages; the predictor never draws from it, so ``none``, ``stale`` and
+``ann`` select the same clients.
 """
 from __future__ import annotations
 
@@ -53,11 +60,17 @@ from repro_torch.core.engine import WirelessEngine, round_robin_priority
 from repro_torch.core.plan import RoundEnv, Schedule, cell_capacity
 from repro_torch.data import (TaskConfig, balanced_eval_set, client_batches,
                               partition_clients)
-from repro_torch.fl.aggregate import aggregate_deltas, apply_aggregate
+from repro_torch.fl.aggregate import (aggregate_deltas, apply_aggregate,
+                                      blend_deltas)
 from repro_torch.fl.client import LocalTrainer
+from repro_torch.fl.predictor import UpdatePredictor
 from repro_torch.models import zoo
-from repro_torch.obs import RunLedger, json_safe
+from repro_torch.obs import RunLedger, json_safe, trace
 from repro_torch.sim import NumpyScenario, get_scenario_config
+
+# a round's predictor telemetry when nothing was predicted
+_NO_PREDICTION = {"n_predicted": 0, "pred_loss": float("nan"),
+                  "pred_error": float("nan")}
 
 
 @dataclasses.dataclass
@@ -70,7 +83,7 @@ class History:
     max_age: list = dataclasses.field(default_factory=list)
     mean_age: list = dataclasses.field(default_factory=list)
     n_selected: list = dataclasses.field(default_factory=list)
-    # update-predictor telemetry (the predictor is not ported: zeros/nan)
+    # update-predictor telemetry (all-nan / zeros when predictor == "none")
     n_predicted: list = dataclasses.field(default_factory=list)
     pred_loss: list = dataclasses.field(default_factory=list)
     pred_error: list = dataclasses.field(default_factory=list)
@@ -88,7 +101,8 @@ class History:
     def as_dict(self):
         """JSON-safe dict via ``obs.json_safe``: array leaves become
         (nested) lists, non-finite floats None (the predictor telemetry is
-        NaN, and bare NaN tokens break strict JSON parsers)."""
+        NaN on rounds without predictions, and bare NaN tokens break
+        strict JSON parsers)."""
         return {k: json_safe(v)
                 for k, v in dataclasses.asdict(self).items()}
 
@@ -101,6 +115,7 @@ class FLServer:
     and the aggregation launch the CUDA kernels.
     ``params`` optionally supplies the initial weights as the reference's
     numpy parameter tree (convert.py); else ``zoo.init_model`` draws them.
+    ``predictor`` (default ``FLConfig.predictor``): none | stale | ann.
     """
 
     def __init__(self, model_cfg: ModelConfig, fl: FLConfig,
@@ -111,20 +126,19 @@ class FLServer:
                  params: Optional[dict] = None,
                  scenario: Optional[str] = None,
                  pairing: Optional[str] = None,
-                 selection: Optional[str] = None):
+                 selection: Optional[str] = None,
+                 predictor: Optional[str] = None):
         if pairing is not None:
             fl = dataclasses.replace(fl, pairing=pairing)
         if selection is not None:
             fl = dataclasses.replace(fl, selection=selection)
-        if fl.predictor != "none":
-            raise NotImplementedError(
-                f"predictor {fl.predictor!r} is ROADMAP queue 3")
         self.cfg = model_cfg
         self.fl = fl
         self.noma = nomacfg
         self.task = task
         self.policy = policy
         self.eval_every = eval_every
+        self.predictor_mode = fl.predictor if predictor is None else predictor
         self.engine = WirelessEngine(nomacfg, fl, device=device,
                                      kernel_backend=kernel_backend)
         self.device = self.engine.device
@@ -141,7 +155,7 @@ class FLServer:
         self.distances, self.cpu_freq = self.scenario.init(
             self.rng, fl.n_clients, n_samples=self.n_samples)
 
-        # model, trainer and the (C, P) fp32 delta buffer
+        # model, trainer, update predictor and the (C, P) fp32 delta buffer
         if params is None:
             self.model = zoo.init_model(model_cfg, seed=seed,
                                         device=self.device)
@@ -153,14 +167,25 @@ class FLServer:
                                     device=self.device)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.model_bits = fl.model_bits or float(n_params) * 32.0
+        # the predictor has its own seed: it must not perturb the
+        # selection rng stream, so none/stale/ann stay paired
+        self.predictor = None
+        if self.predictor_mode != "none":
+            self.predictor = UpdatePredictor(
+                self.model, fl, fl.n_clients, mode=self.predictor_mode,
+                seed=seed)
         slots = nomacfg.n_subchannels * nomacfg.users_per_subchannel
         per_cell = min(slots, cell_capacity(fl.n_clients, fl.n_cells, slots))
-        rows = min(fl.n_cells * per_cell, fl.n_clients)
+        # arrivals, then (with the predictor) a prediction for every
+        # other client
+        rows = (fl.n_clients if self.predictor is not None
+                else min(fl.n_cells * per_cell, fl.n_clients))
         self.deltas = torch.empty((rows, n_params), dtype=torch.float32,
                                   device=self.device)
 
         self.ages = aoi.init_ages(fl.n_clients)
         self._auto_budget: Optional[float] = None
+        self.pred_stats = dict(_NO_PREDICTION)
         self.t_sim = 0.0
         self.round_idx = 0
         self.eval_tokens = torch.as_tensor(balanced_eval_set(task),
@@ -252,15 +277,49 @@ class FLServer:
                                      self.fl.local_batch,
                                      self.fl.local_epochs)
             self.trainer.local_update(self.model, batches, self.deltas[row])
-        if len(sel):
+        self.pred_stats = dict(_NO_PREDICTION)
+        if len(sel) and self.predictor is None:
             agg = aggregate_deltas(self.deltas[:len(sel)],
                                    self.n_samples[sel])
             apply_aggregate(self.model, agg)
+        elif len(sel):
+            self._aggregate_with_predictions(sel)
 
         self.ages = aoi.update_ages(self.ages, sched.selected)
         self.t_sim += sched.t_round
         self.round_idx += 1
         return sched
+
+    def _aggregate_with_predictions(self, sel: np.ndarray) -> None:
+        """Predictor path: train on the arrivals (buffer rows ``:k``),
+        write the unselected clients' predictions into rows ``k:k + M``,
+        blend all ``k + M`` rows with age-discounted weights, apply."""
+        pred = self.predictor
+        k = len(sel)
+        real = self.deltas[:k]
+        data_w = self.n_samples / self.n_samples.sum()
+        with trace.span("predictor.observe", k=k) as sp:
+            stats = pred.observe(sel, real, self.ages, data_w)
+            sp.fence(pred.store_sk)
+
+        w_real = self.n_samples[sel]
+        mean_flat = aggregate_deltas(real, w_real)
+        selected = np.zeros(self.fl.n_clients, bool)
+        selected[sel] = True
+        targets = pred.predictable(selected, self.ages)
+        m = len(targets)
+        with trace.span("predictor.predict", m=m) as sp:
+            pred.predict(targets, self.ages, data_w, mean_flat,
+                         out=self.deltas[k:k + m])
+            sp.fence(self.deltas)
+        w_pred = (self.n_samples[targets] * self.fl.pred_blend
+                  * aoi.age_discount(self.ages[targets],
+                                     self.fl.pred_discount))
+        with trace.span("server.blend", rows=k + m) as sp:
+            agg = blend_deltas(self.deltas[:k + m], w_real, w_pred)
+            sp.fence(agg)
+        apply_aggregate(self.model, agg)
+        self.pred_stats = {"n_predicted": m, **stats}
 
     # -- full experiment ---------------------------------------------------
     def run(self, rounds: Optional[int] = None, *, verbose: bool = False,
@@ -274,7 +333,7 @@ class FLServer:
             ledger = RunLedger.open("fl_run", {
                 "policy": self.policy, "rounds": rounds,
                 "engine": self.fl.engine, "scenario": self.scenario_name,
-                "predictor": self.fl.predictor,
+                "predictor": self.predictor_mode,
                 "fl": dataclasses.asdict(self.fl),
                 "noma": dataclasses.asdict(self.noma),
                 "model": dataclasses.asdict(self.cfg)})
@@ -290,7 +349,8 @@ class FLServer:
         multicell = self.fl.n_cells > 1
         prev_cell = self.scenario.cell.copy()
         for r in range(rounds):
-            sched = self.run_round()
+            with trace.span("server.round", r=r):
+                sched = self.run_round()
             part += sched.selected
             if r % self.eval_every == 0 or r == rounds - 1:
                 acc, loss = self.evaluate()
@@ -306,9 +366,9 @@ class FLServer:
             hist.max_age.append(aoi.max_age(self.ages))
             hist.mean_age.append(aoi.mean_age(self.ages))
             hist.n_selected.append(int(sched.selected.sum()))
-            hist.n_predicted.append(0)
-            hist.pred_loss.append(float("nan"))
-            hist.pred_error.append(float("nan"))
+            hist.n_predicted.append(self.pred_stats["n_predicted"])
+            hist.pred_loss.append(self.pred_stats["pred_loss"])
+            hist.pred_error.append(self.pred_stats["pred_error"])
             hist.t_comp_bottleneck.append(diag["t_comp_bottleneck"])
             hist.t_up_bottleneck.append(diag["t_up_bottleneck"])
             hist.n_evicted.append(diag["n_evicted"])
@@ -324,7 +384,8 @@ class FLServer:
                 max_age=hist.max_age[-1],
                 t_comp_bottleneck=diag["t_comp_bottleneck"],
                 t_up_bottleneck=diag["t_up_bottleneck"],
-                n_evicted=diag["n_evicted"], n_predicted=0)
+                n_evicted=diag["n_evicted"],
+                n_predicted=self.pred_stats["n_predicted"])
             if verbose and r % self.eval_every == 0:
                 print(f"[{self.policy}] round {r:3d} t={self.t_sim:9.1f}s "
                       f"acc={acc:.4f} loss={loss:.4f} "

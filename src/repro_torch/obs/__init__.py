@@ -1,9 +1,12 @@
-"""Observability of the port: round metrics and the JSONL run ledger
-(counterparts of ``src/repro/obs/metrics.py`` and ``obs/ledger.py``)."""
-from repro_torch.obs import ledger, metrics
+"""Observability of the port: tracing spans, round metrics and the JSONL
+run ledger (counterparts of ``src/repro/obs/trace.py``, ``metrics.py`` and
+``ledger.py``)."""
+from repro_torch.obs import ledger, metrics, trace
 from repro_torch.obs.ledger import RunLedger
 from repro_torch.obs.metrics import (AOU_BUCKET_EDGES, MetricsRegistry,
                                      aou_histogram, json_safe)
+from repro_torch.obs.trace import Span, Tracer, span, tracing
 
-__all__ = ["ledger", "metrics", "AOU_BUCKET_EDGES", "MetricsRegistry",
+__all__ = ["ledger", "metrics", "trace", "Span", "Tracer", "span",
+           "tracing", "AOU_BUCKET_EDGES", "MetricsRegistry",
            "aou_histogram", "json_safe", "RunLedger"]

@@ -9,7 +9,7 @@ import torch
 from repro_torch.configs import FLConfig, NOMAConfig, get_config
 from repro_torch.core.engine import WirelessEngine
 from repro_torch.data import TaskConfig
-from repro_torch.fl import FLServer, run_montecarlo
+from repro_torch.fl import FLServer, compare_predictors, run_montecarlo
 from repro_torch.kernels.backend import resolve_backend, resolve_device
 from repro_torch.launch import train
 from repro_torch.launch.serve import run_serve
@@ -49,7 +49,11 @@ def test_scan_sees_the_whole_port():
             "src/repro_torch/sim/scenario.py", "src/repro_torch/fl/rounds.py",
             "src/repro_torch/obs/metrics.py", "src/repro_torch/obs/ledger.py",
             "src/repro_torch/checkpoint/ckpt.py",
-            "src/repro_torch/launch/train.py"} <= names
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/fl/predictor.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/obs/trace.py",
+            "src/repro_torch/launch/roofline.py"} <= names
 
 
 @pytest.fixture
@@ -71,6 +75,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="cuda"):
         FLServer(cfg, FLConfig(n_clients=4, samples_per_client=(8, 8)),
                  NOMAConfig(), TaskConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        compare_predictors(cfg, FLConfig(n_clients=4,
+                                         samples_per_client=(8, 8)),
+                           NOMAConfig(), TaskConfig(), rounds=1)
     with pytest.raises(RuntimeError, match="cuda"):
         Scenario(SCENARIOS["vehicular"], NOMAConfig(), FLConfig())
     with pytest.raises(RuntimeError, match="cuda"):

@@ -520,3 +520,95 @@ class TestScenarioSweeps:
         for k, v in state.items():
             assert back[k].device == v.device and back[k].dtype == v.dtype
             assert torch.equal(back[k], v), k
+
+
+class _Template(torch.nn.Module):
+    """Two parameters whose flat order differs from the reference's ravel
+    order (``w`` then ``b`` here, ``b`` then ``w`` there)."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(300, 70, device=device))
+        self.b = torch.nn.Parameter(torch.zeros(1001, device=device))
+
+
+@pytest.mark.cuda
+class TestPredictorOnCard:
+    """The update predictor's fedagg blend and one observe / predict round,
+    card against CPU."""
+
+    @pytest.mark.parametrize("start", [0, 7])
+    def test_fedagg_over_a_blend_row_slice(self, start):
+        """(50, N) rows of a larger buffer, as the blend reads them: at
+        row 0 (16-byte aligned) and at row 7 of an odd N (unaligned)."""
+        dev = cuda_device()
+        u, w = updates(64, 70_001, 9)
+        rows = torch.from_numpy(u).to(dev)[start:start + 50]
+        wt = torch.from_numpy(w[:50] / w[:50].sum()).to(dev)
+        before = fedagg.fedagg.launches
+        torch.testing.assert_close(fedagg.fedagg(rows, wt),
+                                   fedagg.fedagg_plain(rows, wt), rtol=1e-6,
+                                   atol=1e-6)
+        assert fedagg.fedagg.launches == before + 1
+
+    @pytest.mark.parametrize("mode", ["stale", "ann"])
+    def test_observe_predict_round(self, mode):
+        """Two observed rounds and a prediction: the same stats (rtol
+        1e-4) and rows (atol 1e-5) on the card as on the CPU; the sketch
+        and the MLP's initial weights do not depend on the device."""
+        from repro_torch.fl.predictor import UpdatePredictor
+        dev = cuda_device()
+        fl = FLConfig(n_clients=6, predictor=mode)
+        rng = np.random.default_rng(6)
+        w = np.full(6, 1.0 / 6)
+        preds = {d: UpdatePredictor(_Template(d), fl, 6, seed=1)
+                 for d in ("cpu", dev)}
+        n = preds["cpu"].n_params
+        for clients, ages in (([0, 1, 2], np.ones(6, np.int64)),
+                              ([1, 3], np.array([2, 1, 2, 1, 2, 2]))):
+            rows = torch.from_numpy(
+                rng.standard_normal((len(clients), n)).astype(np.float32))
+            got = preds[dev].observe(clients, rows.to(dev), ages, w)
+            want = preds["cpu"].observe(clients, rows, ages, w)
+            for key, v in want.items():
+                if np.isnan(v):
+                    assert np.isnan(got[key]), key
+                else:
+                    np.testing.assert_allclose(got[key], v, rtol=1e-4,
+                                               err_msg=key)
+        assert np.isfinite(got["pred_error"])
+        selected = np.zeros(6, bool)
+        selected[[1, 3]] = True
+        targets = preds["cpu"].predictable(selected, ages)
+        np.testing.assert_array_equal(targets, [0, 2])
+        mean = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+        out = {d: torch.full((len(targets), n), float("nan"), device=d)
+               for d in ("cpu", dev)}
+        for d, p in preds.items():
+            p.predict(targets, ages, w, mean.to(d), out=out[d])
+        torch.testing.assert_close(out[dev].cpu(), out["cpu"], rtol=0,
+                                   atol=1e-5)
+
+    def test_predictor_round_launches_fedagg_twice(self, monkeypatch):
+        """An FL round with the predictor launches fedagg for the
+        arrivals' mean and for the blend, and never takes the plain
+        version on the card."""
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.data import TaskConfig
+        from repro_torch.fl import FLServer
+        dev = cuda_device()
+        monkeypatch.setattr(fedagg, "fedagg_plain", None)
+        cfg = dataclasses.replace(get_config("smollm_135m").reduced(),
+                                  d_model=32, d_ff=64, vocab_size=32,
+                                  n_layers=2)
+        srv = FLServer(cfg, FLConfig(n_clients=8, local_batch=8, lr=0.2,
+                                     samples_per_client=(24, 48)),
+                       NOMAConfig(n_subchannels=2),
+                       TaskConfig(vocab_size=32, n_topics=4, seq_len=17),
+                       device=dev, predictor="ann", eval_every=10)
+        before = fedagg.fedagg.launches
+        hist = srv.run(3)
+        assert fedagg.fedagg.launches == before + 6
+        assert hist.n_predicted == [0, 4, 4]
+        assert srv.deltas.shape[0] == 8

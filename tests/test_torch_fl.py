@@ -171,7 +171,7 @@ def test_other_policies_and_driver():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(fl=FLConfig(predictor="ann")), NotImplementedError),
+    (dict(predictor="annx"), ValueError),
     (dict(fl=FLConfig(scenario="nope")), ValueError),
 ])
 def test_out_of_scope_raises(kw, exc):

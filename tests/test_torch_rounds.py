@@ -268,8 +268,19 @@ def test_compare_policies_and_time_to_accuracy():
     for target in (0.05, 0.2, 0.3, 0.9):
         assert time_to_accuracy(hist, target) == \
             jrounds.time_to_accuracy(hist, target)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        compare_predictors(cfg, fl, NOMAConfig(), TaskConfig())
+    # compare_predictors runs every mode on one seed: the predictor never
+    # draws from the server's rng, so the selections stay paired
+    by_mode = compare_predictors(cfg, fl, NOMAConfig(n_subchannels=2),
+                                 TaskConfig(**TASK_KW), rounds=3,
+                                 device="cpu")
+    assert list(by_mode) == ["none", "stale", "ann"]
+    for m, h in by_mode.items():
+        np.testing.assert_array_equal(h.participation,
+                                      by_mode["none"].participation)
+        assert h.round_time == by_mode["none"].round_time, m
+        assert all(map(math.isfinite, h.loss)), m
+    assert by_mode["none"].n_predicted == [0, 0, 0]
+    assert by_mode["ann"].n_predicted[1:] == [4, 4]
 
 
 def test_json_safe():
