@@ -14,7 +14,9 @@ Phases, each fatal on failure:
      PyTorch call computes the same function, and its bound on the H100;
      wkv6 also with the device time of each of its three kernels, both
      terms of its bound, the former kernel's fp32 operation term and its
-     compiler report;
+     compiler report; swa also at head_dim 128 (grok's attention at full
+     width with its softcap 30, tile edges) and timed at the windowed
+     prefill shapes of moonshot and chatglm3 against band-masked SDPA;
   3. the wireless engine at Monte-Carlo scale (B=64, N=10,000, K=128),
      checked for its invariants and against the same engine on the CPU;
   4. the pairing policies and joint selection (B=64, N=10,000, K=16):
@@ -68,22 +70,39 @@ Phases, each fatal on failure:
      evaluated, tracing spans on, a (50, P) delta buffer and a (50, P)
      store): predictions from round 1, pred_loss finite in two rounds or
      more, the spans, the sketch's time a call, and fedagg over the
-     largest blend against its plain version, ``torch.mv`` and its bound.
+     largest blend against its plain version, ``torch.mv`` and its bound;
+ 16. moonshot_v1_16b_a3b whole (48 layers, 28.06 B parameters, bf16):
+     ``run_serve`` at B=1, a 4096-token prompt, 16 greedy tokens (window
+     0, the direct attention); ``make_prefill_step(window=8192)`` at
+     B=1, T=16,384 (one swa launch a layer), layer 0's q, k, v caught by
+     a forward hook and the kernel on them held against ``swa_plain``;
+     then the config cut to 2 layers in fp32, its windowed prefill's
+     last logits against the same prefill with the plain attention;
+ 17. chatglm3_6b whole (serve and the windowed prefill, as 16) and
+     stablelm_1_6b whole (serve);
+ 18. grok_1_314b and llama4_maverick_400b_a17b reduced, fp32, card
+     against CPU: prefill (windowed and not), decode, ``run_serve``;
+ 19. ``launch.train.main(["--arch", "moonshot_v1_16b_a3b", ...])`` at the
+     reference CLI's reduced config, 3 rounds, card against CPU from one
+     draw of the weights (the MoE aux loss in local SGD).
 Phases 6a, 7, 8 (each FL path), 9 (run_serve), 10 (the T=4096 prefill),
-14 and 15b each set every kernel's launch count to 0 just before and
-read it just after. The run ledgers go to a temporary directory
-(``REPRO_RUNS_DIR``), removed at the end. The phases run in the order
-1-5, 6a, 6b, 11-13, 6, 7, 8, 14, 15, 9, 10.
+14, 15b, 16 and 17 (each serve and windowed prefill) and 19 each set
+every kernel's launch count to 0 just before and read it just after. The
+run ledgers go to a temporary directory (``REPRO_RUNS_DIR``), removed at
+the end. The phases run in the order 1-5, 6a, 6b, 11-13, 6, 7, 8, 14,
+15, 9, 10, 16-19.
 
 With ``--profile`` it then times the stages of one more FL round and
 traces another with ``torch.profiler``, and traces one prefill and one
-decode step in each of phases 9 and 10 (naming the swa and wkv6 kernels'
-calls and device time within the prefill). It prints a ``{"kernels": [...]}``
+decode step in each of phases 9, 10, 16 and 17 (naming the swa and wkv6
+kernels' calls and device time within the prefill). It prints a ``{"kernels": [...]}``
 line (launches of the four FL kernels from phase 8's hungarian + joint
 path, of swa from phase 9, of wkv6 from phase 10; each entry also has
 the launches of the budget FL path, of the multi-cell budget FL path, of
-the train CLI's path, ``launches_train``, and of the predictor FL path,
-``launches_predictor_fl``),
+the train CLI's path, ``launches_train``, of the predictor FL path,
+``launches_predictor_fl``, of the MoE FL path, ``launches_moe_fl``, and
+of the windowed prefills of moonshot and chatglm3,
+``launches_moonshot_prefill`` and ``launches_chatglm3_prefill``),
 the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details go to
@@ -185,13 +204,28 @@ def kernel_times(torch, fn, *, reps: int = 10) -> dict:
         if kern:
             return {e.key: e.self_device_time_total / 1e3 / reps
                     for e in kern}
-    raise AssertionError("torch.profiler recorded no device kernel in three "
-                         "sessions")
+    raise NoDeviceRecords("torch.profiler recorded no device kernel in three "
+                          "sessions")
+
+
+class NoDeviceRecords(AssertionError):
+    pass
 
 
 def device_ms(torch, fn, *, reps: int = 10) -> float:
-    """Mean device time of one call of ``fn``, all its kernels."""
-    return sum(kernel_times(torch, fn, reps=reps).values())
+    """Mean device time of one call of ``fn``, all its kernels. Where the
+    profiler records no device kernel, the CUDA-event time of the calls
+    instead (host time included), listed by the caller's line under
+    ``device_ms_from_events`` in the result."""
+    try:
+        return sum(kernel_times(torch, fn, reps=reps).values())
+    except NoDeviceRecords:
+        what = f"chip_smoke.py:{sys._getframe(1).f_lineno}"
+        ms = time_ms(torch, fn, reps=reps, runs=3)
+        RESULT.setdefault("device_ms_from_events", {})[what] = ms
+        log(f"torch.profiler recorded no device kernel for {what}: CUDA "
+            f"events give {ms} ms a call")
+        return ms
 
 
 def ptxas_report(log_text: str) -> dict:
@@ -441,6 +475,19 @@ def phase_swa(torch, dev, kinfo):
     shapes.update({f"tile edge S={s} W={w}": (2, s, 6, 2, 64, w, 0.0)
                    for s in (63, 64, 65, 127, 128, 129)
                    for w in (63, 64, 65, 128, 4096)})
+    # head_dim 128 (two 64-column slabs a tile): grok's attention at full
+    # width with its softcap 30, moonshot's g = 1 and chatglm3's 32:2 at
+    # a quarter of their prefill length, S and W off the blocks and the
+    # tile edges
+    shapes.update({
+        "hd 128 grok (softcap 30)": (1, 4096, 48, 8, 128, 2048, 30.0),
+        "hd 128 moonshot g = 1": (1, 4096, 16, 16, 128, 2048, 0.0),
+        "hd 128 chatglm3 32:2": (1, 4096, 32, 2, 128, 2048, 0.0),
+        "hd 128 S, W off the block": (2, 1000, 6, 3, 128, 300, 0.0),
+        "hd 128 W = 1": (1, 129, 4, 2, 128, 1, 0.0)})
+    shapes.update({f"hd 128 tile edge S={s} W={w}": (2, s, 6, 2, 128, w, 0.0)
+                   for s in (63, 64, 65, 127, 128, 129)
+                   for w in (63, 64, 65, 128, 4096)})
     errs = {}
     for (name, (b, s, h, kh, hd, w, cap)), dt in itertools.product(
             shapes.items(), SWA_ROW_ULPS):
@@ -519,7 +566,77 @@ def phase_swa(torch, dev, kinfo):
                   f"{SWA_ROW_ULPS['bfloat16']} bf16 ulps of the row's max",
         shape=list(hymba[:6]), worst_row_ulps_by_dtype=worst,
         seed_sweep_worst_row_ulps=sweep, checks=errs)
+    del q, k, v, qt, kt, vt, band
+    kinfo["swa"]["head_dim_128"] = {
+        name: swa_prefill_times(torch, dev, shape, qkv)
+        for name, shape in SWA_128_PREFILLS.items()}
     log(f"swa {hymba[:6]}: {kinfo['swa']}")
+
+
+# the windowed prefills of the head_dim-128 decoders: (B, S, H, KH, hd, W)
+SWA_128_PREFILLS = {"moonshot_v1_16b_a3b": (1, 16_384, 16, 16, 128, 8192),
+                    "chatglm3_6b": (1, 16_384, 32, 2, 128, 8192)}
+
+
+def swa_prefill_times(torch, dev, shape, qkv) -> dict:
+    """swa at a head_dim-128 prefill shape: the kernel's time and device
+    time, the plain version's (one query head at a time: whole, its fp32
+    scores would take H x 1 GiB three times over), band-masked SDPA's and
+    the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import swa as SW
+    from repro_torch.launch.roofline import PEAK_BF16_S
+    b, s, h, kh, hd, w = shape
+    q, k, v = qkv(b, s, h, kh, hd)
+    # SDPA with K and V expanded to the H query heads: with a mask and
+    # enable_gqa it could take its math path, whose (1, H, S, S) scores
+    # would not fit
+    qt, kt, vt = (x.repeat_interleave(h // x.shape[2], dim=2).transpose(
+        1, 2).contiguous() for x in (q, k, v))
+    i = torch.arange(s, device=dev)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+
+    out = SW.swa(q, k, v, window=w)
+    ref = swa_plain_by_head(torch, q, k, v, window=w)
+    err, tol, rows = (max_err(torch, [out], [ref]), bf16_ulp(ref),
+                      row_ulps(torch, out, ref))
+    if not (err <= tol and rows <= SWA_ROW_ULPS["bfloat16"]):
+        raise AssertionError(f"swa {shape}: max abs err {err} (tolerance "
+                             f"{tol}), worst row {rows} bf16 ulps")
+    lib_err = max_err(torch, [sdpa().transpose(1, 2)], [ref])
+    del out, ref
+    b_ms, b_by = bound(2 * b * s * (2 * h + 2 * kh) * hd,
+                       4 * hd * swa_pairs(s, w) * b * h, PEAK_BF16_S)
+    return dict(
+        shape=list(shape), max_abs_err=err, tolerance=tol,
+        worst_row_ulps=rows,
+        ms=time_ms(torch, lambda: SW.swa(q, k, v, window=w), reps=10,
+                   runs=7),
+        device_ms=device_ms(torch, lambda: SW.swa(q, k, v, window=w)),
+        plain_ms_by_head=time_ms(torch, lambda: swa_plain_by_head(
+            torch, q, k, v, window=w), reps=1, runs=3),
+        library_ms=time_ms(torch, sdpa, reps=5, runs=5),
+        library_device_ms=device_ms(torch, sdpa, reps=5),
+        library_max_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by)
+
+
+def swa_plain_by_head(torch, q, k, v, *, window, softcap=0.0):
+    """``swa_plain`` one query head at a time against its KV head: the
+    same function, with one head's fp32 scores (1 GiB at S=16,384) at a
+    time instead of all H."""
+    from repro_torch.kernels import swa as SW
+    h, kh = q.shape[2], k.shape[2]
+    g = h // kh
+    out = torch.empty_like(q)
+    for i in range(h):
+        j = i // g
+        out[:, :, i:i + 1] = SW.swa_plain(
+            q[:, :, i:i + 1], k[:, :, j:j + 1], v[:, :, j:j + 1],
+            window=window, softcap=softcap)
+    return out
 
 
 def wkv6_inputs(torch, dev, b, h, t, c, seed, *, clip=False, s0=True,
@@ -2034,6 +2151,346 @@ def phase_rwkv(torch, dev, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phases 16-19: the moe family and the head_dim-128 decoders
+# ---------------------------------------------------------------------------
+
+LONG_T = 16_384          # the windowed prefill: twice the 8192 window
+SERVE_PROMPT, SERVE_GEN = 4096, 16
+
+
+def layer0_hook(model):
+    """A forward hook on layer 0's attention that keeps its q, k, v (post
+    RoPE), its window and its output; returns (record, handle)."""
+    from repro_torch.models import layers as L
+    got: dict = {}
+
+    def hook(mod, args, kwargs, out):
+        h, cos, sin = args
+        q = L.apply_rope(mod.qkv_proj(h)[0], cos, sin, mod.cfg.rope_frac)
+        got.update(q=q, k=out[1][0], v=out[1][1], out=out[0],
+                   window=kwargs["window"])
+
+    return got, model.blocks[0].attn.register_forward_hook(hook,
+                                                           with_kwargs=True)
+
+
+def check_layer0(torch, model, got, softcap) -> dict:
+    """The kernel on layer 0's captured q, k, v: projected, it is the
+    model's attention output bitwise; against ``swa_plain`` (head by head)
+    within phase 2's bf16 tolerances."""
+    from repro_torch.kernels import swa as SW
+    q, k, v, w = got["q"], got["k"], got["v"], got["window"]
+    out = SW.swa(q, k, v, window=w, softcap=softcap)
+    same = bool(torch.equal(model.blocks[0].attn.out_proj(out), got["out"]))
+    ref = swa_plain_by_head(torch, q, k, v, window=w, softcap=softcap)
+    err, tol, rows = (max_err(torch, [out], [ref]), bf16_ulp(ref),
+                      row_ulps(torch, out, ref))
+    if not (same and err <= tol and rows <= SWA_ROW_ULPS["bfloat16"]):
+        raise AssertionError(
+            f"layer 0 swa {tuple(q.shape)} W={w}: the model's output "
+            f"reproduced {same}; max abs err {err} (tolerance {tol}), worst "
+            f"row {rows} bf16 ulps (held at {SWA_ROW_ULPS['bfloat16']})")
+    return dict(shape=list(q.shape), window=w, model_output_reproduced=same,
+                max_abs_err=err, tolerance=tol, worst_row_ulps=rows)
+
+
+def serve_whole(torch, dev, model, cfg) -> dict:
+    """``run_serve`` at B=1, a 4096-token prompt and 16 greedy tokens
+    (window 0: the direct attention), launch counts set to 0 just before
+    and read just after."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import run_serve
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = run_serve(cfg, batch=1, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+                    seed=0, device=dev, model=model)
+    counts = kernels.launch_counts()
+    toks = res["tokens"]
+    if toks.shape != (1, SERVE_GEN) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all() \
+            or any(counts.values()):
+        raise AssertionError(f"{cfg.name} serve: tokens {toks}, launches "
+                             f"{counts}")
+    return dict(batch=1, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+                prefill_ms=res["prefill_s"] * 1e3,
+                decode_ms=res["decode_s"] * 1e3,
+                decode_tokens_per_s=res["decode_tokens_per_s"],
+                peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                launches=counts, tokens=toks.tolist())
+
+
+def windowed_prefill(torch, dev, model, cfg) -> tuple[dict, dict]:
+    """``make_prefill_step(cfg, window=cfg.long_context_window)`` at B=1,
+    T=16,384, launch counts set to 0 just before and read just after: one
+    swa launch a layer, finite logits and cache, and layer 0's kernel
+    output held against the plain version. A second, timed run."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.models import zoo
+    w = cfg.long_context_window
+    prefill = zoo.make_prefill_step(cfg, window=w)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, LONG_T)), device=dev)
+    got, handle = layer0_hook(model)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        last, cache = prefill(model, {"tokens": toks})
+        torch.cuda.synchronize()
+    finally:
+        handle.remove()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    want = dict.fromkeys(counts, 0) | {"swa": cfg.n_layers}
+    if counts != want:
+        raise AssertionError(f"{cfg.name} windowed prefill launches "
+                             f"{counts}, want {want}")
+    if not (bool(torch.isfinite(last).all()) and all(
+            bool(torch.isfinite(cache[n]).all()) for n in ("k", "v"))):
+        raise AssertionError(f"{cfg.name} windowed prefill: non-finite "
+                             f"logits or cache")
+    cache_gib = sum(cache[n].numel() * cache[n].element_size()
+                    for n in cache) / 2 ** 30
+    del last, cache
+    layer0 = check_layer0(torch, model, got, cfg.logit_softcap)
+    got.clear()
+    t0 = time.perf_counter()
+    last, cache = prefill(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    del last, cache
+    return dict(T=LONG_T, window=w, first_ms=first_ms, ms=ms,
+                peak_mem_gib=peak, cache_gib=cache_gib, launches=counts,
+                layer0_swa=layer0), counts
+
+
+def fp32_two_layers(torch, dev, cfg) -> dict:
+    """The config cut to 2 layers at full width in fp32: the windowed
+    prefill's last logits with the kernel (``swa_fp32``) against the same
+    prefill with the plain attention (head by head), within
+    FP32_REL_TOL of their largest magnitude."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+    c2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    model = zoo.init_model(c2, seed=0, device=dev)
+    prefill = zoo.make_prefill_step(c2, window=c2.long_context_window)
+    toks = {"tokens": torch.as_tensor(np.random.default_rng(2).integers(
+        0, c2.vocab_size, (1, LONG_T)), device=dev)}
+    last = prefill(model, toks)[0]
+    saved = ops.swa
+    ops.swa = lambda q, k, v, *, window, softcap=0.0: swa_plain_by_head(
+        torch, q, k, v, window=window, softcap=softcap)
+    try:
+        ref = prefill(model, toks)[0]
+    finally:
+        ops.swa = saved
+    nv = c2.vocab_size
+    err = rel_err(torch, last[:, :nv], ref[:, :nv])
+    if not (bool(torch.isfinite(last).all()) and err <= FP32_REL_TOL):
+        raise AssertionError(f"{cfg.name} 2 layers fp32: last logits, "
+                             f"kernel vs plain attention, relative max err "
+                             f"{err} > {FP32_REL_TOL}")
+    del model
+    release(torch)
+    return dict(n_layers=2, dtype="float32", T=LONG_T,
+                window=c2.long_context_window,
+                logits_rel_err_vs_plain_attention=err,
+                rel_tolerance=FP32_REL_TOL)
+
+
+def phase_decoder(torch, dev, arch, *, windowed: bool,
+                  fp32_check: bool = False,
+                  profile: bool = False) -> Optional[dict]:
+    """``arch`` whole at full width in bf16 from seeded weights: serving
+    (``serve_whole``), then with ``windowed`` the T=16,384 windowed
+    prefill, and with ``fp32_check`` the 2-layer fp32 check; with
+    ``profile``, one traced prefill (the windowed one where there is one,
+    else the serve path's 4096 tokens) and one traced decode step. Returns
+    the windowed prefill's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = zoo.init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    # param_count() leaves out the norms, the qkv biases and the padded
+    # vocabulary rows
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    bias = cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+    pad = (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    if n_params != cfg.param_count() + norms + bias * cfg.qkv_bias + pad:
+        raise AssertionError(f"{arch} has {n_params} parameters, "
+                             f"param_count() {cfg.param_count()}")
+    rec = dict(n_params=n_params, dtype=cfg.dtype, setup_s=setup_s,
+               weights_gib=sum(p.numel() * p.element_size()
+                               for p in model.parameters()) / 2 ** 30,
+               serve=serve_whole(torch, dev, model, cfg))
+    counts = None
+    if windowed:
+        rec["windowed_prefill"], counts = windowed_prefill(torch, dev, model,
+                                                           cfg)
+    if profile:
+        rec["profile"] = profile_decoder(torch, dev, model, cfg, windowed)
+    del model
+    release(torch)
+    if fp32_check:
+        rec["fp32_2_layers"] = fp32_two_layers(torch, dev, cfg)
+    RESULT[arch] = rec
+    log(f"{arch} whole ({n_params} parameters, {cfg.dtype}): {rec}")
+    return counts
+
+
+def profile_decoder(torch, dev, model, cfg, windowed: bool) -> dict:
+    """One prefill and one decode step under ``torch.profiler``."""
+    import numpy as np
+    from repro_torch.models import zoo
+    t = LONG_T if windowed else SERVE_PROMPT
+    prefill = zoo.make_prefill_step(
+        cfg, window=cfg.long_context_window if windowed else 0)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, t)), device=dev)
+    out = dict(prefill_T=t, prefill=profile_call(
+        torch, lambda: prefill(model, {"tokens": toks}), names=("swa",)))
+    cache = zoo.init_cache(cfg, 1, SERVE_PROMPT + SERVE_GEN, device=dev)
+    step = zoo.make_serve_step(cfg)
+    step(model, cache, toks[:, 0], 0)
+    out["decode_step"] = profile_call(
+        torch, lambda: step(model, cache, toks[:, 1], 1))
+    log(f"{cfg.name} profile: {out}")
+    return out
+
+
+def phase_reduced_moe(torch, dev):
+    """grok_1_314b and llama4_maverick_400b_a17b (589.5 and 1,449.5 GiB in
+    bf16: no one card holds them) reduced, in fp32, card against CPU from
+    the same weights: the windowed prefill (S=300 past the reduced 256
+    window; grok's softcap 30 in the kernel) and the full one, 4 decode
+    steps from the prefill's cache, and ``run_serve``'s tokens."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.models import zoo
+    out = {}
+    for arch in ("grok_1_314b", "llama4_maverick_400b_a17b"):
+        cfg = get_config(arch).reduced()
+        models = {"cpu": zoo.init_model(cfg, seed=0, device="cpu")}
+        models[dev] = zoo.init_model(cfg, seed=0, device=dev)
+        models[dev].load_state_dict(models["cpu"].state_dict())
+        toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 300))
+        errs = {}
+        for w in (0, cfg.long_context_window):
+            res = {}
+            for d, m in models.items():
+                t = torch.as_tensor(toks, device=d)
+                last, cache = zoo.make_prefill_step(cfg, window=w)(
+                    m, {"tokens": t})
+                full = zoo.init_cache(cfg, 2, 304, device=d)
+                for n in ("k", "v", "pos"):
+                    full[n][:, :, :300] = cache[n]
+                step, logits = zoo.make_serve_step(cfg), [last]
+                tok = torch.argmax(last, -1)
+                for i in range(4):
+                    tok, lg, full = step(m, full, tok, 300 + i)
+                    logits.append(lg)
+                res[d] = [x.cpu() for x in (torch.stack(logits),
+                                            cache["k"], cache["v"])]
+            errs[f"window {w}"] = e = [rel_err(torch, a, b) for a, b in
+                                       zip(res[dev], res["cpu"])]
+            if not max(e) <= 1e-4:
+                raise AssertionError(f"{arch} reduced, window {w}: card vs "
+                                     f"CPU relative max err (logits, k, v) "
+                                     f"{e}")
+        toks_served = {d: run_serve(cfg, batch=2, prompt_len=40, gen=6,
+                                    seed=0, device=d, model=m)["tokens"]
+                       for d, m in models.items()}
+        if not (toks_served[dev] == toks_served["cpu"]).all():
+            raise AssertionError(f"{arch} reduced run_serve tokens: card "
+                                 f"{toks_served[dev]} vs CPU "
+                                 f"{toks_served['cpu']}")
+        out[arch] = dict(rel_err_logits_k_v=errs, rel_tolerance=1e-4,
+                         tokens=toks_served[dev].tolist())
+        del models
+    RESULT["reduced_moe"] = out
+    log(f"grok and llama4 reduced, fp32, card == CPU: {out}")
+
+
+def phase_moe_fl(torch, dev):
+    """``launch.train.main(["--arch", "moonshot_v1_16b_a3b", ...])`` at the
+    reference CLI's reduced config (age_noma_budget, 30 clients, 3 rounds
+    each evaluated), on the card with every launch count set to 0 just
+    before and read just after, and on the CPU, both from the same CPU
+    draw of the weights: selections and evictions equal, losses rtol 1e-4,
+    final parameters atol 1e-5 (phase 15a's tiers)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import backend
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    init = zoo.init_model
+
+    def cpu_drawn(cfg, *, seed=0, device="cuda"):
+        return init(cfg, seed=seed, device="cpu").to(
+            backend.resolve_device(device))
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_fl_"))
+    argv = ["--arch", "moonshot_v1_16b_a3b", "--rounds", "3", "--eval-every",
+            "1", "--out", str(work)]
+    zoo.init_model = cpu_drawn
+    try:
+        backend.probe.cache_clear()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = train.main(argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        cpu = train.main(argv + ["--device", "cpu"])
+    finally:
+        zoo.init_model = init
+        shutil.rmtree(work, ignore_errors=True)
+    h_card, h_cpu = card["history"], cpu["history"]
+    for key in ("n_selected", "n_evicted"):
+        if h_card[key] != h_cpu[key]:
+            raise AssertionError(f"MoE FL {key}: card {h_card[key]} vs CPU "
+                                 f"{h_cpu[key]}")
+    if h_card["participation"] != h_cpu["participation"]:
+        raise AssertionError("MoE FL selects differently on the card")
+    for a, b in zip(h_card["loss"], h_cpu["loss"]):
+        if not math.isclose(a, b, rel_tol=1e-4):
+            raise AssertionError(f"MoE FL loss card {a} vs CPU {b}")
+    err = max(float((p.detach().float().cpu() - q.detach().float())
+                    .abs().max())
+              for p, q in zip(card["server"].model.parameters(),
+                              cpu["server"].model.parameters()))
+    if err > 1e-5:
+        raise AssertionError(f"MoE FL final parameters {err} apart")
+    cfg = card["server"].cfg
+    want = dict(probe_kernel=1, fedagg=3, planner=0, swa=0, wkv6=0,
+                pairscore=1 + sum(1 + e for e in h_card["n_evicted"]))
+    if counts != want or not cfg.is_moe:
+        raise AssertionError(f"MoE FL launches {counts}, want {want}")
+    RESULT["moe_fl"] = dict(
+        arch="moonshot_v1_16b_a3b", config=dict(
+            d_model=cfg.d_model, d_ff=cfg.d_ff, n_layers=cfg.n_layers,
+            n_experts=cfg.n_experts, top_k=cfg.top_k,
+            vocab_size=cfg.vocab_size),
+        n_params=sum(p.numel() for p in card["server"].model.parameters()),
+        wall_s=wall, n_selected=h_card["n_selected"],
+        n_evicted=h_card["n_evicted"], loss=h_card["loss"],
+        params_max_abs_err=err, launches=counts)
+    log(f"MoE FL round (train CLI, reduced moonshot): card == CPU "
+        f"(selections, loss rtol 1e-4, parameters atol 1e-5); "
+        f"{RESULT['moe_fl']}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2122,6 +2579,15 @@ def run_phases(torch) -> int:
     profile = "--profile" in sys.argv[1:]
     hymba_counts = phase_hymba(torch, dev, profile)
     rwkv_counts = phase_rwkv(torch, dev, profile)
+    moonshot_counts = phase_decoder(torch, dev, "moonshot_v1_16b_a3b",
+                                    windowed=True, fp32_check=True,
+                                    profile=profile)
+    chatglm_counts = phase_decoder(torch, dev, "chatglm3_6b", windowed=True,
+                                   profile=profile)
+    phase_decoder(torch, dev, "stablelm_1_6b", windowed=False,
+                  profile=profile)
+    phase_reduced_moe(torch, dev)
+    moe_fl_counts = phase_moe_fl(torch, dev)
 
     fl_path = f"FLServer smollm-135M, hungarian + joint, {FL_ROUNDS} rounds"
     paths = {
@@ -2147,7 +2613,10 @@ def run_phases(torch) -> int:
          "launches_budget_fl": budget_counts[name],
          "launches_budget_cells_fl": cells_counts[name],
          "launches_train": train_counts[name],
-         "launches_predictor_fl": predictor_counts[name], **kinfo[name]}
+         "launches_predictor_fl": predictor_counts[name],
+         "launches_moe_fl": moe_fl_counts[name],
+         "launches_moonshot_prefill": moonshot_counts[name],
+         "launches_chatglm3_prefill": chatglm_counts[name], **kinfo[name]}
         for name, (src, rep, counts, path) in paths.items()]}
     RESULT.update(card=smi, kernels=line["kernels"])
     OUT.mkdir(exist_ok=True)

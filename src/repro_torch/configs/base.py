@@ -28,7 +28,8 @@ from typing import Tuple
 class ModelConfig:
     """Transformer-family architecture description.
 
-    ``family`` selects the assembly (the port builds dense, hybrid, ssm):
+    ``family`` selects the assembly (the port builds dense, moe, hybrid,
+    ssm):
       dense | moe | ssm | hybrid | encdec | vlm
     """
 
@@ -318,7 +319,9 @@ class FLConfig:
 # Registry (the architectures ported so far)
 # ---------------------------------------------------------------------------
 
-ARCH_IDS = ["smollm_135m", "hymba_1_5b", "rwkv6_7b"]
+ARCH_IDS = ["smollm_135m", "hymba_1_5b", "rwkv6_7b", "stablelm_1_6b",
+            "chatglm3_6b", "moonshot_v1_16b_a3b", "grok_1_314b",
+            "llama4_maverick_400b_a17b"]
 
 
 def canon(arch: str) -> str:
@@ -329,5 +332,7 @@ def get_config(arch: str) -> ModelConfig:
     name = canon(arch)
     if name not in ARCH_IDS:
         raise ValueError(f"architecture {arch!r} is not ported "
-                         f"(ported: {ARCH_IDS}; ROADMAP queue 4)")
+                         f"(ported: {ARCH_IDS}; paligemma_3b and "
+                         f"seamless_m4t_medium are ROADMAP queue A item "
+                         f"4b)")
     return importlib.import_module(f"repro_torch.configs.{name}").CONFIG

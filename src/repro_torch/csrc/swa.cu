@@ -30,9 +30,12 @@
 // was slower, and so was an FA3-style pipeline inside a warpgroup).
 //  - The producer's one thread loads the Q tile once and the band's K and
 //    V tiles of 64 keys by TMA (3-D tensor maps over (B, S, KH * hd), box
-//    (64 rows, hd) at column kvh * hd, so rows past S arrive as zeros) into
-//    a ring of NS stages with full/empty mbarriers. Tiles are swizzled
-//    (128 B rows at hd 64, 32 B at hd 16) as wgmma reads them.
+//    (64 rows, min(hd, 64)) at column kvh * hd, so rows past S arrive as
+//    zeros) into a ring of NS stages with full/empty mbarriers. Tiles are
+//    swizzled (128 B rows at hd 64, 32 B at hd 16) as wgmma reads them. A
+//    128-byte swizzle spans 64 bf16 columns, so at hd 128 a tile is two
+//    such slabs side by side, one box each; S = Q K^T walks its eight k16
+//    steps over both, and O += P V runs one m64n64 product per slab.
 //  - S = Q K^T is `wgmma.m64n64k16` bf16 -> fp32 with Q and K from shared
 //    memory, both K-major. O += P V is `wgmma.m64n{hd}k16` with P in
 //    registers (the S accumulator's layout is the A fragment's, so P is
@@ -384,33 +387,43 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Shared-memory layout of one CTA; every tile is 1024-byte aligned, as the
-// 128-byte swizzle needs.
+// 128-byte swizzle needs. A tile of HD columns is stored as SLABS slabs of
+// COLS columns side by side ([rows][COLS] each, swizzled): a 128-byte
+// swizzle spans at most 64 bf16 columns, so head_dim 128 takes two slabs,
+// each loaded by its own TMA box and laid out as a head_dim-64 tile.
 template <int HD>
 struct Smem {
-  static constexpr int ROW = HD * 2;             // bytes of one row
-  static constexpr int Q = 0;                    // [TQ][HD], swizzled
-  static constexpr int O = Q + TQ * ROW;         // [TQ][HD], output staging
-  static constexpr int K = O + TQ * ROW;         // NS x [TK][HD]
-  static constexpr int V = K + NS * TK * ROW;    // NS x [TK][HD]
-  static constexpr int BAR = V + NS * TK * ROW;  // full[NS], empty[NS], q
+  static constexpr int COLS = HD < 64 ? HD : 64; // columns of one slab
+  static constexpr int SLABS = HD / COLS;
+  static constexpr int ROW = COLS * 2;           // bytes of one slab row
+  static constexpr int Q = 0;                    // SLABS x [TQ][COLS]
+  static constexpr int O = Q + TQ * HD * 2;      // [TQ][HD], output staging
+  static constexpr int K = O + TQ * HD * 2;      // NS x SLABS x [TK][COLS]
+  static constexpr int V = K + NS * TK * HD * 2; // NS x SLABS x [TK][COLS]
+  static constexpr int BAR = V + NS * TK * HD * 2;  // full[NS], empty[NS], q
   static constexpr int BYTES = BAR + 8 * (2 * NS + 1);
-  static constexpr int TILE = TK * ROW;
-  // swizzle of a row of ROW bytes: the span is the row itself (128 or 32)
+  static constexpr int TILE = TK * HD * 2;       // one K or V stage
+  static constexpr int SLAB = TK * ROW;          // one slab of a K/V tile
+  static constexpr int QSLAB = TQ * ROW;         // one slab of the Q tile
+  // swizzle of a slab row of ROW bytes: the span is the row (128 or 32)
   static constexpr uint32_t MODE = ROW == 128 ? 1 : 3;
   static constexpr uint32_t ATOM = 8 * ROW;      // 8 rows of one swizzle
 };
 
-// Two CTAs fit on an SM (96 registers a thread): four consumer warpgroups,
-// so one's softmax runs beside another's products.
+// At head_dim 16 and 64 two CTAs fit on an SM (96 registers a thread):
+// four consumer warpgroups, so one's softmax runs beside another's
+// products. At 128 the O accumulator alone is 64 registers a thread and
+// the shared memory ~193 KB: one CTA an SM.
 template <int HD>
-__global__ void __launch_bounds__(NTW, 2)
+__global__ void __launch_bounds__(NTW, HD == 128 ? 1 : 2)
 swa_wgmma(const __grid_constant__ CUtensorMap qmap,
           const __grid_constant__ CUtensorMap kmap,
           const __grid_constant__ CUtensorMap vmap,
           __nv_bfloat16* __restrict__ out, int S, int H, int KH, int W,
           float scale_log2, float cap) {
   using L = Smem<HD>;
-  static_assert(HD == 16 || HD == 64, "head_dim 16 or 64");
+  static_assert(HD == 16 || HD == 64 || HD == 128,
+                "head_dim 16, 64 or 128");
   extern __shared__ uint8_t smem_raw[];
   // align the tiles to 1024 bytes of the shared window
   const uint32_t raw = smem_u32(smem_raw);
@@ -452,17 +465,22 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
   if (tid >= NWG * 128) {
     // producer: one thread issues every copy
     if (tid == NWG * 128) {
-      mbar_expect_tx(qbar, TQ * L::ROW);
-      tma_load(base + L::Q, &qmap, h * HD, q0, b, qbar);
+      mbar_expect_tx(qbar, TQ * HD * 2);
+      for (int j = 0; j < L::SLABS; ++j)
+        tma_load(base + L::Q + j * L::QSLAB, &qmap, h * HD + j * L::COLS,
+                 q0, b, qbar);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % NS;
         mbar_wait(empty0 + 8 * st, ((t / NS) & 1) ^ 1);
         mbar_expect_tx(full0 + 8 * st, 2 * L::TILE);
         const int k0 = (t_lo + t) * TK;
-        tma_load(base + L::K + st * L::TILE, &kmap, kvh * HD, k0, b,
-                 full0 + 8 * st);
-        tma_load(base + L::V + st * L::TILE, &vmap, kvh * HD, k0, b,
-                 full0 + 8 * st);
+        for (int j = 0; j < L::SLABS; ++j) {
+          const int col = kvh * HD + j * L::COLS;
+          tma_load(base + L::K + st * L::TILE + j * L::SLAB, &kmap, col, k0,
+                   b, full0 + 8 * st);
+          tma_load(base + L::V + st * L::TILE + j * L::SLAB, &vmap, col, k0,
+                   b, full0 + 8 * st);
+        }
       }
     }
     return;
@@ -480,7 +498,7 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
   const int my_hi = r0 < S ? min(r0 + WQ - 1, S - 1) / TK - t_lo : -1;
 
   const uint64_t qdesc = make_desc(base + L::Q + wg * WQ * L::ROW, 16,
-                                   L::ATOM, L::MODE);
+                                   L::ATOM, L::MODE);   // slab 0
   float o[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
@@ -492,14 +510,18 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
     const int st = t % NS;
     mbar_wait(full0 + 8 * st, (t / NS) & 1);
     if (t >= my_lo && t <= my_hi) {
-      // S = Q K^T: both K-major; a k16 step is 32 bytes along the row
+      // S = Q K^T: both K-major; a k16 step is 32 bytes along the slab
+      // row, and step kk lies in slab kk / (COLS / 16)
       fence_regs(s);
       wgmma_fence();
       const uint64_t kdesc =
           make_desc(base + L::K + st * L::TILE, 16, L::ATOM, L::MODE);
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_ss(s, qdesc + 2 * kk, kdesc + 2 * kk, kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int slab = kk / (L::COLS / 16), in = kk % (L::COLS / 16);
+        wgmma_ss(s, qdesc + ((slab * L::QSLAB) >> 4) + 2 * in,
+                 kdesc + ((slab * L::SLAB) >> 4) + 2 * in, kk > 0);
+      }
       wgmma_commit();
       wgmma_wait();
       fence_regs(s);
@@ -564,14 +586,20 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
         for (int r = 0; r < 4; ++r)
           p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 
-      // O += P V: V is [key][hd], MN-major; a k16 step is 16 rows
+      // O += P V: V is [key][hd], MN-major; a k16 step is 16 rows. Slab
+      // j holds output columns 64 j .. 64 j + 63, which are the
+      // accumulator's registers 32 j .. 32 j + 31 (one m64n64 product each)
       fence_regs(o);
       wgmma_fence();
       const uint64_t vdesc = make_desc(base + L::V + st * L::TILE, L::ATOM,
                                        L::ATOM, L::MODE);
 #pragma unroll
       for (int kk = 0; kk < TK / 16; ++kk)
-        wgmma_rs(o, p[kk], vdesc + ((16 * L::ROW * kk) >> 4));
+#pragma unroll
+        for (int j = 0; j < L::SLABS; ++j)
+          wgmma_rs(*reinterpret_cast<float(*)[HD / 2 / L::SLABS]>(
+                       o + j * (HD / 2 / L::SLABS)),
+                   p[kk], vdesc + ((j * L::SLAB + 16 * L::ROW * kk) >> 4));
       wgmma_commit();
       wgmma_wait();
       fence_regs(o);
@@ -583,16 +611,17 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
   // out = o / max(l, 1e-30) in bf16, staged in shared memory with its
   // 16-byte chunks rotated by row (no bank conflicts), then 16-byte stores
   constexpr int CH = HD / 8;                      // 16-byte chunks per row
+  constexpr int OROW = HD * 2;                    // bytes of a staged row
   const float d0 = fmaxf(quad_sum(l0), 1e-30f);
   const float d1 = fmaxf(quad_sum(l1), 1e-30f);
-  uint8_t* stage = smem + L::O + wg * WQ * L::ROW;
+  uint8_t* stage = smem + L::O + wg * WQ * OROW;
   const int ra = row, rb = row + 8;
 #pragma unroll
   for (int j = 0; j < CH; ++j) {
-    *reinterpret_cast<uint32_t*>(stage + ra * L::ROW + ((j ^ (ra % CH)) * 16)
+    *reinterpret_cast<uint32_t*>(stage + ra * OROW + ((j ^ (ra % CH)) * 16)
                                  + 4 * quad) =
         pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
-    *reinterpret_cast<uint32_t*>(stage + rb * L::ROW + ((j ^ (rb % CH)) * 16)
+    *reinterpret_cast<uint32_t*>(stage + rb * OROW + ((j ^ (rb % CH)) * 16)
                                  + 4 * quad) =
         pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
   }
@@ -603,7 +632,7 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
     const int qp = r0 + r;
     if (qp >= S) continue;
     const uint4 val = *reinterpret_cast<const uint4*>(
-        stage + r * L::ROW + ((c ^ (r % CH)) * 16));
+        stage + r * OROW + ((c ^ (r % CH)) * 16));
     *reinterpret_cast<uint4*>(out + (static_cast<int64_t>(b) * S + qp) * q_row
                               + h * HD + c * 8) = val;
   }
@@ -631,22 +660,24 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (B, S, heads * HD) bf16, box (rows, HD) swizzled as a row of HD * 2 bytes
-// (HD 64 or 16)
+// (B, S, heads * HD) bf16, box (rows, COLS = min(HD, 64)) swizzled as a row
+// of COLS * 2 bytes (128 at HD 64 and 128, 32 at HD 16)
 bool encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
             int HD, int rows) {
+  const int cols = HD < 64 ? HD : 64;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * HD,
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * 2 * dims[1]};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(HD),
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols),
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            HD == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+            cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -675,7 +706,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = fp32 (CUDA cores), 1 = bf16 (wgmma + TMA); q, k, v and out
-// share it. hd in {16, 64} (the reduced and the full hymba); H % KH == 0;
+// share it. hd in {16, 64, 128} (the reduced and the full hymba, and the
+// head_dim-128 decoders: chatglm3, moonshot, grok, llama4); H % KH == 0;
 // W >= 1; cap <= 0: no softcap. bf16 pointers must be 16-byte aligned.
 extern "C" int repro_swa(const void* q, const void* k, const void* v,
                          void* out, int dtype, int B, int S, int H, int KH,
@@ -684,15 +716,14 @@ extern "C" int repro_swa(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || W < 1 ||
-      (hd != 16 && hd != 64) || dtype < 0 || dtype > 1)
+      (hd != 16 && hd != 64 && hd != 128) || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = hd == 64;
-  if (dtype == 0)
-    err = wide ? launch_fp32<64>(q, k, v, out, B, S, H, KH, W, scale, cap, s)
-               : launch_fp32<16>(q, k, v, out, B, S, H, KH, W, scale, cap, s);
-  else
-    err = wide ? launch_bf16<64>(q, k, v, out, B, S, H, KH, W, scale, cap, s)
-               : launch_bf16<16>(q, k, v, out, B, S, H, KH, W, scale, cap, s);
-  return static_cast<int>(err);
+  const auto launch = dtype == 0
+      ? (hd == 128 ? launch_fp32<128> : hd == 64 ? launch_fp32<64>
+                                                 : launch_fp32<16>)
+      : (hd == 128 ? launch_bf16<128> : hd == 64 ? launch_bf16<64>
+                                                 : launch_bf16<16>);
+  return static_cast<int>(launch(q, k, v, out, B, S, H, KH, W, scale, cap,
+                                 s));
 }

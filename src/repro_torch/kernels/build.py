@@ -158,10 +158,10 @@ def refuse_grad(what: str, *tensors) -> None:
     raises instead of quietly taking the plain version."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what}: the CUDA kernel has no backward; training the hybrid "
-            f"and ssm families on the card needs backward kernels (ROADMAP, "
-            f"'Training the hybrid and ssm families on the card'). Call it "
-            f"under torch.no_grad().")
+            f"{what}: the CUDA kernel has no backward; training through it "
+            f"on the card (the hybrid and ssm families, or a windowed dense "
+            f"or moe model) needs backward kernels (ROADMAP queue A item "
+            f"5). Call it under torch.no_grad().")
 
 
 def check(code: int, what: str) -> None:

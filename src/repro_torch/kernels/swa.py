@@ -16,7 +16,8 @@ dtype alone:
   by TMA, S = Q K^T and O += P V by ``wgmma`` with fp32 accumulators, the
   online softmax in fp32, P rounded to bf16 for the second product. Its
   tensor maps need 16-byte aligned q, k, v; the wrapper copies a tensor
-  that is not.
+  that is not. At head_dim 128 each tile is two swizzled 64-column slabs
+  and one CTA fits an SM.
 - fp32 (the model-level checks): ``swa_fp32``, fp32 on the CUDA cores.
 
 ``attention_plain`` is the plain PyTorch version: dense masked attention
@@ -34,7 +35,9 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64)         # the reduced and the full hymba
+# the reduced and the full hymba (16, 64; stablelm 64) and the head_dim-128
+# decoders (chatglm3, moonshot, grok, llama4)
+HEAD_DIMS = (16, 64, 128)
 MAX_GRID_Y = 65_535          # fp32: B * H rides on the grid's y dimension
 
 

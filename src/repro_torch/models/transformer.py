@@ -1,4 +1,4 @@
-"""Decoder-LM assembly of the dense, hybrid and ssm (RWKV6) families.
+"""Decoder-LM assembly of the dense, moe, hybrid and ssm (RWKV6) families.
 
 Counterpart of ``src/repro/models/transformer.py``: block init
 (``_init_block``/``init_decoder``), ``block_seq``, ``block_decode``,
@@ -11,11 +11,18 @@ reference's stacked layout (a leading layer axis); decode writes them in
 place and returns the same dict. Norm weights are fp32, as in the
 reference, whatever the model dtype.
 
-The hybrid family's full-sequence attention uses ``cfg.long_context_window``
-(the reference's ``decoder_forward``), so its prefill goes through the
-sliding-window kernel. Its decode applies the window only with a ring cache
-(``ring=True``), as the reference does: on a linear cache every cached
-position is attended.
+The moe family is the dense block with ``moe`` (models/moe.py) in the
+place of ``mlp``; ``forward`` sums the layers' load-balance losses.
+
+Full-sequence attention takes the ``window`` of ``forward`` (the
+reference's ``decoder_forward(window=)``): 0 is causal attention over the
+whole prefix, a window > 0 goes through the sliding-window kernel. The
+hybrid family takes ``cfg.long_context_window`` when the window is 0. The
+decode applies the window only with a ring cache (``ring=True``), as the
+reference does: on a linear cache every cached position is attended.
+
+``cfg.sliding_window`` is read by no model code of the reference, so the
+port builds a config that sets it and ignores it too.
 """
 from __future__ import annotations
 
@@ -24,10 +31,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 
-FAMILIES = ("dense", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def _rope_dim(cfg: ModelConfig) -> int:
@@ -38,7 +46,7 @@ def _rope_dim(cfg: ModelConfig) -> int:
 class Block(nn.Module):
     """Pre-norm attention + MLP layer (``block_seq`` of the reference); the
     hybrid family adds a parallel SSM branch and mean-fuses the normed
-    outputs of the two."""
+    outputs of the two; the moe family's MLP is the expert layer."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -53,7 +61,17 @@ class Block(nn.Module):
                                                      device=device))
             self.ln_ssm_o = nn.Parameter(torch.ones(cfg.d_model,
                                                     device=device))
-        self.mlp = L.MLP(cfg, dtype, device)
+        if cfg.is_moe:
+            self.moe = MOE.MoE(cfg, dtype, device)
+        else:
+            self.mlp = L.MLP(cfg, dtype, device)
+
+    def _ffn(self, x):
+        """The residual's MLP (or expert) update and its aux loss."""
+        h = L.rms_norm(x, self.ln2, self.eps)
+        if self.cfg.is_moe:
+            return self.moe(h)
+        return self.mlp(h), None
 
     def _fuse(self, x, attn_out, ssm_out):
         fused = 0.5 * (L.rms_norm(attn_out, self.ln_attn_o, self.eps)
@@ -61,7 +79,7 @@ class Block(nn.Module):
         return x + fused
 
     def forward(self, x, cos, sin, *, window: int = 0):
-        """Returns (x_out, (k, v), new_states or None)."""
+        """Returns (x_out, aux or None, (k, v), new_states or None)."""
         h = L.rms_norm(x, self.ln1, self.eps)
         attn_out, kv = self.attn(h, cos, sin, window=window)
         states = None
@@ -71,8 +89,8 @@ class Block(nn.Module):
             states = {"ssm_h": h_last}
         else:
             x = x + attn_out
-        x = x + self.mlp(L.rms_norm(x, self.ln2, self.eps))
-        return x, kv, states
+        ffn, aux = self._ffn(x)
+        return x + ffn, aux, kv, states
 
     def decode(self, x, cache: dict, pos: int, *, ring: bool):
         """One layer, one new token (``block_decode``). x (B,1,D); ``cache``
@@ -100,7 +118,7 @@ class Block(nn.Module):
             cache["ssm_h"].copy_(h_new)
         else:
             x = x + attn_out
-        return x + self.mlp(L.rms_norm(x, self.ln2, self.eps))
+        return x + self._ffn(x)[0]
 
 
 class RWKVBlock(nn.Module):
@@ -154,14 +172,14 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        if cfg.family not in FAMILIES or cfg.is_moe or cfg.n_prefix_tokens:
+        if cfg.family not in FAMILIES or cfg.n_prefix_tokens:
             raise NotImplementedError(
-                f"model family {cfg.family!r} is ROADMAP queue 4; the port "
-                f"builds {FAMILIES}")
-        if cfg.family != "ssm" and (cfg.rope_frac <= 0.0
-                                    or cfg.sliding_window):
+                f"model family {cfg.family!r} (or a prefix input) is ROADMAP "
+                f"queue A item 4b; the port builds {FAMILIES}")
+        if cfg.family != "ssm" and cfg.rope_frac <= 0.0:
             raise NotImplementedError(
-                "NoPE and sliding-window dense variants are ROADMAP queue 4")
+                "NoPE (rope_frac == 0, sinusoid positions) is ROADMAP queue "
+                "A item 4b")
         dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(
@@ -185,44 +203,59 @@ class DecoderLM(nn.Module):
             logits = logits + mask
         return logits
 
-    def forward(self, tokens, *, collect_cache: bool = False,
-                last_only: bool = False):
+    def forward(self, tokens, *, window: int = 0,
+                collect_cache: bool = False, last_only: bool = False,
+                with_aux: bool = False):
         """tokens (B, S) int -> logits (B, S, padded_vocab) (``last_only``:
         (B, 1, V)); with ``collect_cache`` also the stacked per-layer cache
-        (k, v post-RoPE and pos; ssm_h; or the RWKV states)."""
+        (k, v post-RoPE and pos; ssm_h; or the RWKV states), with
+        ``with_aux`` the layers' summed MoE aux loss (0.0 without experts):
+        logits[, cache][, aux]. ``window`` > 0 is sliding-window attention;
+        the hybrid family takes ``cfg.long_context_window`` for 0."""
         cfg = self.cfg
         x = self.embed[tokens]
         b, s = tokens.shape
         caches: dict = {}
+        aux = 0.0
+
+        def put(name, i, val):
+            # each layer straight into the stacked cache: no list to stack
+            if name not in caches:
+                caches[name] = val.new_empty((cfg.n_layers, *val.shape))
+            caches[name][i] = val
+
         if cfg.family == "ssm":
-            for blk in self.blocks:
+            for i, blk in enumerate(self.blocks):
                 x, st = blk(x, _init_seq_states(cfg, b, x.dtype, x.device))
                 if collect_cache:
                     for name, val in st.items():
-                        caches.setdefault(name, []).append(val)
+                        put(name, i, val)
         else:
-            window = cfg.long_context_window if cfg.family == "hybrid" \
-                else 0
+            if cfg.family == "hybrid" and window == 0:
+                window = cfg.long_context_window
             positions = torch.arange(s, device=tokens.device)
             cos, sin = L.rope_angles(positions, _rope_dim(cfg),
                                      cfg.rope_theta)
-            for blk in self.blocks:
-                x, (k, v), st = blk(x, cos, sin, window=window)
+            for i, blk in enumerate(self.blocks):
+                x, layer_aux, (k, v), st = blk(x, cos, sin, window=window)
+                if layer_aux is not None:
+                    aux = aux + layer_aux
                 if collect_cache:
-                    caches.setdefault("k", []).append(k)
-                    caches.setdefault("v", []).append(v)
+                    put("k", i, k)
+                    put("v", i, v)
                     if st is not None:
-                        caches.setdefault("ssm_h", []).append(st["ssm_h"])
+                        put("ssm_h", i, st["ssm_h"])
             if collect_cache:
-                caches["pos"] = [positions.to(torch.int32).expand(b, s)] \
-                    * cfg.n_layers
+                caches["pos"] = positions.to(torch.int32).expand(
+                    cfg.n_layers, b, s).contiguous()
         if last_only:
             x = x[:, -1:]
-        logits = self.unembed(x)
-        if not collect_cache:
-            return logits
-        return logits, {name: torch.stack(vals)
-                        for name, vals in caches.items()}
+        out = (self.unembed(x),)
+        if collect_cache:
+            out += (caches,)
+        if with_aux:
+            out += (aux,)
+        return out if len(out) > 1 else out[0]
 
     def decode(self, cache: dict, token, pos: int, *, ring: bool = False):
         """One decode step (``decoder_decode``). token (B,) int; ``pos`` the

@@ -2,12 +2,15 @@
 serving step builders ``make_prefill_step``, ``make_serve_step`` and
 ``init_cache``.
 
-Counterpart of ``src/repro/models/zoo.py`` (dense, hybrid and ssm
+Counterpart of ``src/repro/models/zoo.py`` (dense, moe, hybrid and ssm
 families). ``init_model`` draws every weight from a seeded
 ``torch.Generator`` on the target device with the reference's law —
 truncated normal on [-2, 2] scaled by the fan-in (``layers.dense_init``),
 ``d_model ** -0.5`` for the embedding, 1/sqrt(fan-in) for output
-projections, 0.01 for the RWKV decay LoRA's second factor, 0.5 for the
+projections, 1/sqrt(E) for the experts' (E, D, F) ``wi`` and ``wg`` (the
+reference's ``dense_init`` takes ``shape[0]``, here the expert count, as
+the fan-in), 1/sqrt(D) for the router and 1/sqrt(F) for the experts'
+``wo``, 0.01 for the RWKV decay LoRA's second factor, 0.5 for the
 RWKV bonus ``u``, ones for the norms, and the constants the reference sets
 (RWKV mu = 0.5, w0 = -1; SSM a_log = log(1..N), d_skip = 1, dt_bias = 0) —
 so its numbers differ from the reference's ``jax.random`` draws by design;
@@ -34,7 +37,7 @@ def _fan_in_scale(shape) -> float:
 @torch.no_grad()
 def init_model(cfg: ModelConfig, *, seed: int = 0,
                device="cuda") -> DecoderLM:
-    """Build the decoder of ``cfg.family`` (dense, hybrid or ssm) on
+    """Build the decoder of ``cfg.family`` (dense, moe, hybrid or ssm) on
     ``device`` with seeded random weights."""
     dev = resolve_device(device)
     model = DecoderLM(cfg, dev)
@@ -57,7 +60,7 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
             draw(tm.u, 0.5)
             draw(cm.wv, 1.0 / math.sqrt(cfg.d_ff))
             continue
-        a, f = blk.attn, blk.mlp
+        a = blk.attn
         for w in (a.wq, a.wk, a.wv):
             draw(w, _fan_in_scale(w.shape))
         draw(a.wo, 1.0 / math.sqrt(a.wo.shape[0]))
@@ -66,6 +69,13 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
             for w in (m.win, m.wbc, m.wdt, m.wdt2):
                 draw(w, _fan_in_scale(w.shape))
             draw(m.wout, 1.0 / math.sqrt(cfg.d_model))
+        if cfg.is_moe:
+            m = blk.moe
+            for w in (m.router, m.wi, m.wg):
+                draw(w, _fan_in_scale(w.shape))
+            draw(m.wo, 1.0 / math.sqrt(cfg.d_ff))
+            continue
+        f = blk.mlp
         draw(f.wi, _fan_in_scale(f.wi.shape))
         if cfg.glu:
             draw(f.wg, _fan_in_scale(f.wg.shape))
@@ -76,19 +86,22 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 
 
 def forward(cfg: ModelConfig, model: DecoderLM, tokens):
-    """Returns (logits, aux); aux is 0 for the ported (non-MoE) families."""
+    """Returns (logits, aux): aux is the layers' summed MoE load-balance
+    loss, 0.0 for a model without experts."""
     del cfg  # the model carries its config
-    return model(tokens), 0.0
+    return model(tokens, with_aux=True)
 
 
-def make_prefill_step(cfg: ModelConfig):
-    """Returns prefill(model, batch) -> (last_logits (B, V), cache)."""
+def make_prefill_step(cfg: ModelConfig, *, window: int = 0):
+    """Returns prefill(model, batch) -> (last_logits (B, V), cache).
+    ``window`` > 0 prefills with sliding-window attention (the hybrid
+    family takes ``cfg.long_context_window`` for 0)."""
     del cfg
 
     @torch.no_grad()
     def prefill(model: DecoderLM, batch: dict):
-        logits, cache = model(batch["tokens"], collect_cache=True,
-                              last_only=True)
+        logits, cache = model(batch["tokens"], window=window,
+                              collect_cache=True, last_only=True)
         return logits[:, -1, :], cache
 
     return prefill

@@ -53,7 +53,13 @@ def test_scan_sees_the_whole_port():
             "src/repro_torch/fl/predictor.py",
             "src/repro_torch/optim/adamw.py",
             "src/repro_torch/obs/trace.py",
-            "src/repro_torch/launch/roofline.py"} <= names
+            "src/repro_torch/launch/roofline.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/configs/moonshot_v1_16b_a3b.py",
+            "src/repro_torch/configs/grok_1_314b.py",
+            "src/repro_torch/configs/llama4_maverick_400b_a17b.py",
+            "src/repro_torch/configs/stablelm_1_6b.py",
+            "src/repro_torch/configs/chatglm3_6b.py"} <= names
 
 
 @pytest.fixture
@@ -87,7 +93,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
         train.main(["--rounds", "1"])
 
 
-@pytest.mark.parametrize("arch", ["hymba_1_5b", "rwkv6_7b"])
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "rwkv6_7b",
+                                  "moonshot_v1_16b_a3b", "chatglm3_6b"])
 def test_serving_entry_points_default_to_cuda(arch, no_card):
     cfg = get_config(arch).reduced()
     with pytest.raises(RuntimeError, match="cuda"):

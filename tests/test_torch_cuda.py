@@ -219,6 +219,13 @@ class TestServingKernels:
         (1, 500, 4, 4, 64, 100, 0.0),        # g = 1
         (1, 600, 8, 2, 64, 200, 5.0),        # softcap
         (2, 300, 4, 1, 16, 256, 0.0),        # reduced hymba
+        # head_dim 128: moonshot (g = 1), chatglm3 (32:2), grok with its
+        # softcap 30, and S, W off the tiles
+        (1, 4096, 16, 16, 128, 2048, 0.0),
+        (1, 2048, 32, 2, 128, 1024, 0.0),
+        (1, 4096, 48, 8, 128, 2048, 30.0),
+        (2, 1000, 6, 3, 128, 300, 0.0),
+        (1, 129, 4, 2, 128, 1, 0.0),
     ])
     def test_swa(self, b, s, h, kh, hd, w, cap):
         """bf16 output from fp32 accumulation on both sides: max abs err
@@ -231,18 +238,22 @@ class TestServingKernels:
         (2, 1000, 6, 3, 64, 300, 0.0),
         (1, 600, 8, 2, 64, 200, 5.0),
         (2, 300, 4, 1, 16, 256, 0.0),
+        (1, 2048, 32, 2, 128, 1024, 0.0),
+        (1, 4096, 48, 8, 128, 2048, 30.0),
+        (2, 1000, 6, 3, 128, 300, 0.0),
     ])
     def test_swa_fp32(self, b, s, h, kh, hd, w, cap):
         """The fp32 kernel (CUDA cores) under the same two checks."""
         self._check_swa(b, s, h, kh, hd, w, cap, torch.float32)
 
+    @pytest.mark.parametrize("hd", [64, 128])
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("w", [63, 64, 65, 128, 4096])
     @pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129])
-    def test_swa_tile_edges(self, s, w, dtype):
+    def test_swa_tile_edges(self, s, w, dtype, hd):
         """S and W on, one below and one past the 64-key tile and the
         128-query block."""
-        self._check_swa(2, s, 6, 2, 64, w, 0.0, dtype)
+        self._check_swa(2, s, 6, 2, hd, w, 0.0, dtype)
 
     @staticmethod
     def _check_swa(b, s, h, kh, hd, w, cap, dtype):
@@ -308,16 +319,24 @@ class TestServingKernels:
         with pytest.raises(RuntimeError, match="wkv6: CUDA error"):
             wkv6.wkv6(*args, chunk=64)
 
-    @pytest.mark.parametrize("arch,kernel", [("hymba_1_5b", "swa"),
-                                             ("rwkv6_7b", "wkv6")])
-    def test_prefill_launches_its_kernel_once_per_layer(self, arch, kernel):
+    @pytest.mark.parametrize("arch,kernel,windowed", [
+        ("hymba_1_5b", "swa", False), ("rwkv6_7b", "wkv6", False),
+        ("moonshot_v1_16b_a3b", "swa", True), ("chatglm3_6b", "swa", True),
+        ("grok_1_314b", "swa", True)])
+    def test_prefill_launches_its_kernel_once_per_layer(self, arch, kernel,
+                                                        windowed):
+        """The hybrid prefill always takes the window; the others with
+        ``make_prefill_step(window=cfg.long_context_window)`` (256 in the
+        reduced configs, below the 300-token prompt)."""
         dev = cuda_device()
         cfg = get_config(arch).reduced()
         model = zoo.init_model(cfg, seed=0, device=dev)
         fn = {"swa": swa.swa, "wkv6": wkv6.wkv6}[kernel]
         before = fn.launches
         toks = torch.randint(0, cfg.vocab_size, (2, 300), device=dev)
-        last, _ = zoo.make_prefill_step(cfg)(model, {"tokens": toks})
+        window = cfg.long_context_window if windowed else 0
+        last, _ = zoo.make_prefill_step(cfg, window=window)(
+            model, {"tokens": toks})
         assert fn.launches == before + cfg.n_layers
         assert bool(torch.isfinite(last).all())
 
@@ -340,7 +359,8 @@ class TestServingKernels:
         with torch.no_grad():
             call()
 
-    @pytest.mark.parametrize("arch", ["hymba_1_5b", "rwkv6_7b"])
+    @pytest.mark.parametrize("arch", ["hymba_1_5b", "rwkv6_7b",
+                                      "moonshot_v1_16b_a3b", "chatglm3_6b"])
     def test_run_serve_on_the_card_never_takes_the_plain_path(
             self, arch, monkeypatch):
         dev = cuda_device()
@@ -612,3 +632,44 @@ class TestPredictorOnCard:
         assert fedagg.fedagg.launches == before + 6
         assert hist.n_predicted == [0, 4, 4]
         assert srv.deltas.shape[0] == 8
+
+
+@pytest.mark.cuda
+class TestMoEOnCard:
+    """The MoE layer on the card against the same layer on the CPU."""
+
+    def test_queue_positions_card_equals_cpu(self):
+        """moonshot's 64 experts top-6 at a 16,384-token prefill: the same
+        queue places on both devices, exactly."""
+        from repro_torch.models import moe
+        dev = cuda_device()
+        gen = torch.Generator().manual_seed(0)
+        idx = torch.stack([torch.randperm(64, generator=gen)[:6]
+                           for _ in range(16_384)])
+        want = moe.queue_positions(idx, 64)
+        assert torch.equal(moe.queue_positions(idx.to(dev), 64).cpu(), want)
+
+    @pytest.mark.parametrize("capacity_factor", [0.5, 1.25])
+    def test_apply_moe_card_equals_cpu(self, capacity_factor):
+        """moonshot's 64 experts top-6 over 512 tokens at a narrow width,
+        with and without drops: outputs within 1e-5 of max|out| and aux
+        to rtol 1e-5 in fp32 (a router near-tie could flip a choice
+        between the devices; at 512 tokens that is unlikely)."""
+        import dataclasses
+        from repro_torch.models import moe
+        dev = cuda_device()
+        cfg = dataclasses.replace(get_config("moonshot_v1_16b_a3b"),
+                                  d_model=64, d_ff=96,
+                                  capacity_factor=capacity_factor)
+        layer = moe.MoE(cfg, torch.float32, torch.device("cpu"))
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for p in layer.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+        x = torch.randn((2, 256, 64), generator=gen)
+        with torch.no_grad():
+            want, want_aux = moe.apply_moe(layer, x, cfg)
+            got, aux = moe.apply_moe(layer.to(dev), x.to(dev), cfg)
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+        assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)

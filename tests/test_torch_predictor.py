@@ -93,7 +93,10 @@ def predictors(mode, n_clients=6, **fl_kw):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["smollm_135m", "hymba_1_5b", "rwkv6_7b"])
+@pytest.mark.parametrize("arch", ["smollm_135m", "hymba_1_5b", "rwkv6_7b",
+                                  "stablelm_1_6b", "chatglm3_6b",
+                                  "moonshot_v1_16b_a3b", "grok_1_314b",
+                                  "llama4_maverick_400b_a17b"])
 def test_flat_order_map_round_trips_a_raveled_tree(arch):
     """A reference tree of the arch's shapes holding distinct integers:
     its ravel, mapped to the port's order, is the port model's parameters
