@@ -15,8 +15,11 @@ Phases, each fatal on failure:
      wkv6 also with the device time of each of its three kernels, both
      terms of its bound, the former kernel's fp32 operation term and its
      compiler report; swa also at head_dim 128 (grok's attention at full
-     width with its softcap 30, tile edges) and timed at the windowed
-     prefill shapes of moonshot and chatglm3 against band-masked SDPA;
+     width with its softcap 30, tile edges), at head_dim 256 and with the
+     prefix-LM band (prefixes 0, 1, 100, 256 and past the window, on
+     every head dim), and timed at the windowed prefill shapes of
+     moonshot, chatglm3, paligemma (with its prefix) and seamless against
+     band-masked SDPA;
   3. the wireless engine at Monte-Carlo scale (B=64, N=10,000, K=128),
      checked for its invariants and against the same engine on the CPU;
   4. the pairing policies and joint selection (B=64, N=10,000, K=16):
@@ -84,25 +87,41 @@ Phases, each fatal on failure:
      against CPU: prefill (windowed and not), decode, ``run_serve``;
  19. ``launch.train.main(["--arch", "moonshot_v1_16b_a3b", ...])`` at the
      reference CLI's reduced config, 3 rounds, card against CPU from one
-     draw of the weights (the MoE aux loss in local SGD).
+     draw of the weights (the MoE aux loss in local SGD);
+ 20. paligemma_3b whole (18 layers, 2.51 B parameters, bf16):
+     ``run_serve`` at B=1, its 256 image-prefix tokens, a 4096-token
+     prompt and 16 greedy tokens (the direct attention with the prefix-LM
+     mask); ``make_prefill_step(window=8192)`` at T=16,384 (256 prefix +
+     16,128 text; one swa launch a layer, head_dim 256 with the prefix
+     band), layer 0's q, k, v caught by a forward hook and held against
+     ``swa_plain(prefix=256)``; the config cut to 2 layers in fp32 against
+     the plain attention;
+ 21. seamless_m4t_medium whole (12 + 12 layers, 0.88 B parameters):
+     ``run_serve`` at B=1, 512 encoder frames, a 4096-token prompt and 16
+     tokens; the windowed prefill at T=16,384 (one swa launch a decoder
+     layer; the encoder and the cross-attention are direct), the first
+     swa call's inputs held against ``swa_plain``; then paligemma and
+     seamless reduced, fp32, card against CPU (as 18).
 Phases 6a, 7, 8 (each FL path), 9 (run_serve), 10 (the T=4096 prefill),
-14, 15b, 16 and 17 (each serve and windowed prefill) and 19 each set
-every kernel's launch count to 0 just before and read it just after. The
-run ledgers go to a temporary directory (``REPRO_RUNS_DIR``), removed at
-the end. The phases run in the order 1-5, 6a, 6b, 11-13, 6, 7, 8, 14,
-15, 9, 10, 16-19.
+14, 15b, 16, 17, 20 and 21 (each serve and windowed prefill) and 19 each
+set every kernel's launch count to 0 just before and read it just after.
+The run ledgers go to a temporary directory (``REPRO_RUNS_DIR``), removed
+at the end. The phases run in the order 1-5, 6a, 6b, 11-13, 6, 7, 8, 14,
+15, 9, 10, 16-21.
 
 With ``--profile`` it then times the stages of one more FL round and
 traces another with ``torch.profiler``, and traces one prefill and one
-decode step in each of phases 9, 10, 16 and 17 (naming the swa and wkv6
-kernels' calls and device time within the prefill). It prints a ``{"kernels": [...]}``
+decode step in each of phases 9, 10, 16, 17, 20 and 21 (naming the swa
+and wkv6 kernels' calls and device time within the prefill). It prints a ``{"kernels": [...]}``
 line (launches of the four FL kernels from phase 8's hungarian + joint
 path, of swa from phase 9, of wkv6 from phase 10; each entry also has
 the launches of the budget FL path, of the multi-cell budget FL path, of
 the train CLI's path, ``launches_train``, of the predictor FL path,
 ``launches_predictor_fl``, of the MoE FL path, ``launches_moe_fl``, and
 of the windowed prefills of moonshot and chatglm3,
-``launches_moonshot_prefill`` and ``launches_chatglm3_prefill``),
+``launches_moonshot_prefill`` and ``launches_chatglm3_prefill``, and of
+paligemma's and seamless's, ``launches_paligemma_prefill`` and
+``launches_seamless_prefill``),
 the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details go to
@@ -443,9 +462,12 @@ def row_ulps(torch, out, ref):
 SWA_ROW_ULPS = {"bfloat16": 2.0, "float32": 1.0}
 
 
-def swa_pairs(s: int, w: int) -> int:
-    """(query, key) pairs of a causal band of width w over s positions."""
-    return sum(min(i + 1, w) for i in range(s))
+def swa_pairs(s: int, w: int, p: int = 0) -> int:
+    """(query, key) pairs of a causal band of width w over s positions,
+    with the prefix-LM band's extra pairs (keys j < p above the diagonal:
+    j > i, within the window since j > i)."""
+    q = min(p, s)
+    return sum(min(i + 1, w) for i in range(s)) + q * (q - 1) // 2
 
 
 def phase_swa(torch, dev, kinfo):
@@ -488,15 +510,36 @@ def phase_swa(torch, dev, kinfo):
     shapes.update({f"hd 128 tile edge S={s} W={w}": (2, s, 6, 2, 128, w, 0.0)
                    for s in (63, 64, 65, 127, 128, 129)
                    for w in (63, 64, 65, 128, 4096)})
+    # head_dim 256 (four slabs, setmaxnreg) and the prefix-LM band (an 8th
+    # entry, the prefix): paligemma's 8:1 with its 256-token prefix at a
+    # quarter of its prefill, 4:4, prefixes 0, 1, 100, 256 and past W,
+    # softcap 30, S, W and P off the tiles; seamless's 16:16 at hd 64; the
+    # hd 16, 64 and 128 kernels with a prefix
+    shapes.update({
+        "hd 256 paligemma 8:1 prefix 256": (1, 4096, 8, 1, 256, 2048, 0.0,
+                                            256),
+        "hd 256 4:4": (2, 1000, 4, 4, 256, 300, 0.0),
+        **{f"hd 256 prefix {p}": (2, 1000, 8, 1, 256, 300, 0.0, p)
+           for p in (0, 1, 100, 256, 500)},
+        "hd 256 softcap 30 prefix 256": (1, 700, 8, 1, 256, 300, 30.0, 256),
+        "hd 256 prefix past S": (1, 200, 8, 1, 256, 64, 0.0, 300),
+        "hd 64 seamless 16:16": (1, 4096, 16, 16, 64, 2048, 0.0),
+        "hd 16 prefix 8": (2, 300, 4, 1, 16, 256, 0.0, 8),
+        "hd 64 prefix 100": (2, 1000, 6, 3, 64, 300, 0.0, 100),
+        "hd 128 prefix 100 softcap 30": (2, 1000, 6, 3, 128, 300, 30.0, 100)})
+    shapes.update({f"hd 256 tile edge S={s} W={w} P=70":
+                   (2, s, 6, 2, 256, w, 0.0, 70)
+                   for s in (63, 65, 127, 129) for w in (63, 65, 4096)})
     errs = {}
-    for (name, (b, s, h, kh, hd, w, cap)), dt in itertools.product(
+    for (name, (b, s, h, kh, hd, w, cap, *pre)), dt in itertools.product(
             shapes.items(), SWA_ROW_ULPS):
+        p = pre[0] if pre else 0
         q, k, v = qkv(b, s, h, kh, hd, getattr(torch, dt))
         if cap:
             q = q * 8.0                       # scores well past the cap
-        out = SW.swa(q, k, v, window=w, softcap=cap)
+        out = SW.swa(q, k, v, window=w, softcap=cap, prefix=p)
         torch.cuda.synchronize()
-        ref = SW.swa_plain(q, k, v, window=w, softcap=cap)
+        ref = SW.swa_plain(q, k, v, window=w, softcap=cap, prefix=p)
         err, tol = max_err(torch, [out], [ref]), bf16_ulp(ref)
         rows = row_ulps(torch, out, ref)
         if not (err <= tol and rows <= SWA_ROW_ULPS[dt]):
@@ -570,23 +613,33 @@ def phase_swa(torch, dev, kinfo):
     kinfo["swa"]["head_dim_128"] = {
         name: swa_prefill_times(torch, dev, shape, qkv)
         for name, shape in SWA_128_PREFILLS.items()}
+    kinfo["swa"]["vlm_encdec"] = {
+        name: swa_prefill_times(torch, dev, shape, qkv)
+        for name, shape in SWA_VLM_ENCDEC_PREFILLS.items()}
     log(f"swa {hymba[:6]}: {kinfo['swa']}")
 
 
 # the windowed prefills of the head_dim-128 decoders: (B, S, H, KH, hd, W)
 SWA_128_PREFILLS = {"moonshot_v1_16b_a3b": (1, 16_384, 16, 16, 128, 8192),
                     "chatglm3_6b": (1, 16_384, 32, 2, 128, 8192)}
+# and of paligemma (its 256-token image prefix first) and seamless's
+# decoder: (B, S, H, KH, hd, W, prefix)
+SWA_VLM_ENCDEC_PREFILLS = {
+    "paligemma_3b": (1, 16_384, 8, 1, 256, 8192, 256),
+    "seamless_m4t_medium": (1, 16_384, 16, 16, 64, 8192, 0)}
 
 
 def swa_prefill_times(torch, dev, shape, qkv) -> dict:
-    """swa at a head_dim-128 prefill shape: the kernel's time and device
-    time, the plain version's (one query head at a time: whole, its fp32
-    scores would take H x 1 GiB three times over), band-masked SDPA's and
-    the bound."""
+    """swa at a windowed prefill shape (a 7th entry: the prefix): the
+    kernel's time and device time, the plain version's (one query head at
+    a time: whole, its fp32 scores would take H x 1 GiB three times over),
+    SDPA's with the band (and prefix) as a boolean mask, and the bound,
+    its pairs counted with the prefix's extra pairs."""
     import torch.nn.functional as F
     from repro_torch.kernels import swa as SW
     from repro_torch.launch.roofline import PEAK_BF16_S
-    b, s, h, kh, hd, w = shape
+    b, s, h, kh, hd, w, *pre = shape
+    p = pre[0] if pre else 0
     q, k, v = qkv(b, s, h, kh, hd)
     # SDPA with K and V expanded to the H query heads: with a mask and
     # enable_gqa it could take its math path, whose (1, H, S, S) scores
@@ -594,13 +647,17 @@ def swa_prefill_times(torch, dev, shape, qkv) -> dict:
     qt, kt, vt = (x.repeat_interleave(h // x.shape[2], dim=2).transpose(
         1, 2).contiguous() for x in (q, k, v))
     i = torch.arange(s, device=dev)
-    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    band = (((i[None, :] <= i[:, None]) | (i[None, :] < p))
+            & (i[None, :] > i[:, None] - w))
 
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
 
-    out = SW.swa(q, k, v, window=w)
-    ref = swa_plain_by_head(torch, q, k, v, window=w)
+    def kernel():
+        return SW.swa(q, k, v, window=w, prefix=p)
+
+    out = kernel()
+    ref = swa_plain_by_head(torch, q, k, v, window=w, prefix=p)
     err, tol, rows = (max_err(torch, [out], [ref]), bf16_ulp(ref),
                       row_ulps(torch, out, ref))
     if not (err <= tol and rows <= SWA_ROW_ULPS["bfloat16"]):
@@ -609,21 +666,20 @@ def swa_prefill_times(torch, dev, shape, qkv) -> dict:
     lib_err = max_err(torch, [sdpa().transpose(1, 2)], [ref])
     del out, ref
     b_ms, b_by = bound(2 * b * s * (2 * h + 2 * kh) * hd,
-                       4 * hd * swa_pairs(s, w) * b * h, PEAK_BF16_S)
+                       4 * hd * swa_pairs(s, w, p) * b * h, PEAK_BF16_S)
     return dict(
         shape=list(shape), max_abs_err=err, tolerance=tol,
         worst_row_ulps=rows,
-        ms=time_ms(torch, lambda: SW.swa(q, k, v, window=w), reps=10,
-                   runs=7),
-        device_ms=device_ms(torch, lambda: SW.swa(q, k, v, window=w)),
+        ms=time_ms(torch, kernel, reps=10, runs=7),
+        device_ms=device_ms(torch, kernel),
         plain_ms_by_head=time_ms(torch, lambda: swa_plain_by_head(
-            torch, q, k, v, window=w), reps=1, runs=3),
+            torch, q, k, v, window=w, prefix=p), reps=1, runs=3),
         library_ms=time_ms(torch, sdpa, reps=5, runs=5),
         library_device_ms=device_ms(torch, sdpa, reps=5),
         library_max_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by)
 
 
-def swa_plain_by_head(torch, q, k, v, *, window, softcap=0.0):
+def swa_plain_by_head(torch, q, k, v, *, window, softcap=0.0, prefix=0):
     """``swa_plain`` one query head at a time against its KV head: the
     same function, with one head's fp32 scores (1 GiB at S=16,384) at a
     time instead of all H."""
@@ -635,7 +691,7 @@ def swa_plain_by_head(torch, q, k, v, *, window, softcap=0.0):
         j = i // g
         out[:, :, i:i + 1] = SW.swa_plain(
             q[:, :, i:i + 1], k[:, :, j:j + 1], v[:, :, j:j + 1],
-            window=window, softcap=softcap)
+            window=window, softcap=softcap, prefix=prefix)
     return out
 
 
@@ -2017,8 +2073,9 @@ def phase_hymba(torch, dev, profile=False):
 
     def plain_prefill():
         saved = ops.swa
-        ops.swa = lambda q, k, v, *, window, softcap=0.0: SW.swa_plain(
-            q, k, v, window=window, softcap=softcap)
+        ops.swa = lambda q, k, v, *, window, softcap=0.0, prefix=0: \
+            SW.swa_plain(q, k, v, window=window, softcap=softcap,
+                         prefix=prefix)
         try:
             return prefill(model, {"tokens": prompt})[0]
         finally:
@@ -2159,39 +2216,78 @@ SERVE_PROMPT, SERVE_GEN = 4096, 16
 
 
 def layer0_hook(model):
-    """A forward hook on layer 0's attention that keeps its q, k, v (post
-    RoPE), its window and its output; returns (record, handle)."""
+    """Keep layer 0's attention inputs to the kernel: q, k, v (post RoPE),
+    the window and the prefix. A decoder's: a forward hook on layer 0's
+    attention, which also keeps its (projected) output. An encdec's
+    (its decoder self-attention calls ``layers.flash_attention`` itself):
+    the first call of ``ops.swa``, and its output. Returns (record, the
+    callable that removes the hook)."""
+    from repro_torch.kernels import ops
     from repro_torch.models import layers as L
     got: dict = {}
+    if not hasattr(model, "blocks"):
+        real = ops.swa
+
+        def first(q, k, v, *, window, softcap=0.0, prefix=0):
+            out = real(q, k, v, window=window, softcap=softcap,
+                       prefix=prefix)
+            if not got:
+                got.update(q=q, k=k, v=v, attn=out, window=window,
+                           prefix=prefix)
+            return out
+
+        ops.swa = first
+        return got, lambda: setattr(ops, "swa", real)
 
     def hook(mod, args, kwargs, out):
         h, cos, sin = args
         q = L.apply_rope(mod.qkv_proj(h)[0], cos, sin, mod.cfg.rope_frac)
         got.update(q=q, k=out[1][0], v=out[1][1], out=out[0],
-                   window=kwargs["window"])
+                   window=kwargs["window"],
+                   prefix=kwargs.get("prefix_len", 0))
 
-    return got, model.blocks[0].attn.register_forward_hook(hook,
-                                                           with_kwargs=True)
+    return got, model.blocks[0].attn.register_forward_hook(
+        hook, with_kwargs=True).remove
 
 
 def check_layer0(torch, model, got, softcap) -> dict:
-    """The kernel on layer 0's captured q, k, v: projected, it is the
-    model's attention output bitwise; against ``swa_plain`` (head by head)
-    within phase 2's bf16 tolerances."""
+    """The kernel on layer 0's captured q, k, v: it reproduces the model's
+    attention output bitwise (projected, for a decoder); against
+    ``swa_plain`` (head by head) within phase 2's bf16 tolerances."""
     from repro_torch.kernels import swa as SW
-    q, k, v, w = got["q"], got["k"], got["v"], got["window"]
-    out = SW.swa(q, k, v, window=w, softcap=softcap)
-    same = bool(torch.equal(model.blocks[0].attn.out_proj(out), got["out"]))
-    ref = swa_plain_by_head(torch, q, k, v, window=w, softcap=softcap)
+    q, k, v, w, p = (got[n] for n in ("q", "k", "v", "window", "prefix"))
+    out = SW.swa(q, k, v, window=w, softcap=softcap, prefix=p)
+    same = bool(torch.equal(out, got["attn"]) if "attn" in got else
+                torch.equal(model.blocks[0].attn.out_proj(out), got["out"]))
+    ref = swa_plain_by_head(torch, q, k, v, window=w, softcap=softcap,
+                            prefix=p)
     err, tol, rows = (max_err(torch, [out], [ref]), bf16_ulp(ref),
                       row_ulps(torch, out, ref))
     if not (same and err <= tol and rows <= SWA_ROW_ULPS["bfloat16"]):
         raise AssertionError(
-            f"layer 0 swa {tuple(q.shape)} W={w}: the model's output "
+            f"layer 0 swa {tuple(q.shape)} W={w} P={p}: the model's output "
             f"reproduced {same}; max abs err {err} (tolerance {tol}), worst "
             f"row {rows} bf16 ulps (held at {SWA_ROW_ULPS['bfloat16']})")
-    return dict(shape=list(q.shape), window=w, model_output_reproduced=same,
-                max_abs_err=err, tolerance=tol, worst_row_ulps=rows)
+    return dict(shape=list(q.shape), window=w, prefix=p,
+                model_output_reproduced=same, max_abs_err=err,
+                tolerance=tol, worst_row_ulps=rows)
+
+
+def model_inputs(torch, dev, cfg, t: int, seed: int, batch: int = 1) -> dict:
+    """A batch of ``t`` positions for ``cfg`` from ``default_rng(seed)``:
+    random tokens, then a vlm's image prefix (its ``n_prefix_tokens`` of
+    the ``t``) or an encdec's encoder frames."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pref = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+    out = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (batch, t - pref)), device=dev)}
+    if cfg.family in ("vlm", "encdec"):
+        out["prefix" if cfg.family == "vlm" else "frames"] = torch.as_tensor(
+            rng.standard_normal((batch, cfg.n_prefix_tokens,
+                                 cfg.prefix_dim)),
+            dtype=getattr(torch, cfg.dtype), device=dev)
+    return out
 
 
 def serve_whole(torch, dev, model, cfg) -> dict:
@@ -2221,25 +2317,25 @@ def serve_whole(torch, dev, model, cfg) -> dict:
 
 def windowed_prefill(torch, dev, model, cfg) -> tuple[dict, dict]:
     """``make_prefill_step(cfg, window=cfg.long_context_window)`` at B=1,
-    T=16,384, launch counts set to 0 just before and read just after: one
-    swa launch a layer, finite logits and cache, and layer 0's kernel
-    output held against the plain version. A second, timed run."""
-    import numpy as np
+    T=16,384 (a vlm's image prefix among them; an encdec's 512 frames
+    beside them), launch counts set to 0 just before and read just after:
+    one swa launch a (decoder) layer, finite logits and cache, and layer
+    0's kernel output held against the plain version. A second, timed
+    run."""
     from repro_torch import kernels
     from repro_torch.models import zoo
     w = cfg.long_context_window
     prefill = zoo.make_prefill_step(cfg, window=w)
-    toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (1, LONG_T)), device=dev)
-    got, handle = layer0_hook(model)
+    batch = model_inputs(torch, dev, cfg, LONG_T, 1)
+    got, remove = layer0_hook(model)
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     try:
-        last, cache = prefill(model, {"tokens": toks})
+        last, cache = prefill(model, batch)
         torch.cuda.synchronize()
     finally:
-        handle.remove()
+        remove()
     first_ms = (time.perf_counter() - t0) * 1e3
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -2257,7 +2353,7 @@ def windowed_prefill(torch, dev, model, cfg) -> tuple[dict, dict]:
     layer0 = check_layer0(torch, model, got, cfg.logit_softcap)
     got.clear()
     t0 = time.perf_counter()
-    last, cache = prefill(model, {"tokens": toks})
+    last, cache = prefill(model, batch)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     del last, cache
@@ -2271,18 +2367,17 @@ def fp32_two_layers(torch, dev, cfg) -> dict:
     prefill's last logits with the kernel (``swa_fp32``) against the same
     prefill with the plain attention (head by head), within
     FP32_REL_TOL of their largest magnitude."""
-    import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.models import zoo
     c2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     model = zoo.init_model(c2, seed=0, device=dev)
     prefill = zoo.make_prefill_step(c2, window=c2.long_context_window)
-    toks = {"tokens": torch.as_tensor(np.random.default_rng(2).integers(
-        0, c2.vocab_size, (1, LONG_T)), device=dev)}
+    toks = model_inputs(torch, dev, c2, LONG_T, 2)
     last = prefill(model, toks)[0]
     saved = ops.swa
-    ops.swa = lambda q, k, v, *, window, softcap=0.0: swa_plain_by_head(
-        torch, q, k, v, window=window, softcap=softcap)
+    ops.swa = lambda q, k, v, *, window, softcap=0.0, prefix=0: \
+        swa_plain_by_head(torch, q, k, v, window=window, softcap=softcap,
+                          prefix=prefix)
     try:
         ref = prefill(model, toks)[0]
     finally:
@@ -2299,6 +2394,23 @@ def fp32_two_layers(torch, dev, cfg) -> dict:
                 window=c2.long_context_window,
                 logits_rel_err_vs_plain_attention=err,
                 rel_tolerance=FP32_REL_TOL)
+
+
+def expected_params(cfg) -> int:
+    """``param_count()`` plus what it leaves out: the norms, the qkv
+    biases, the padded vocabulary rows and the input projection of a vlm's
+    prefix (``prefix_proj``) or an encdec's frames (``frontend_proj``)."""
+    d = cfg.d_model
+    bias = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim * cfg.qkv_bias
+    pad = (cfg.padded_vocab - cfg.vocab_size) * d
+    if cfg.family == "encdec":
+        return (cfg.param_count()
+                + (2 * cfg.n_enc_layers + 3 * cfg.n_layers + 2) * d
+                + (cfg.n_enc_layers + 2 * cfg.n_layers) * bias + 2 * pad
+                + cfg.prefix_dim * d)
+    return (cfg.param_count() + (2 * cfg.n_layers + 1) * d
+            + cfg.n_layers * bias + pad * (1 if cfg.tie_embeddings else 2)
+            + (cfg.prefix_dim * d if cfg.n_prefix_tokens else 0))
 
 
 def phase_decoder(torch, dev, arch, *, windowed: bool,
@@ -2319,13 +2431,7 @@ def phase_decoder(torch, dev, arch, *, windowed: bool,
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    # param_count() leaves out the norms, the qkv biases and the padded
-    # vocabulary rows
-    norms = (2 * cfg.n_layers + 1) * cfg.d_model
-    bias = cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
-    pad = (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model * (
-        1 if cfg.tie_embeddings else 2)
-    if n_params != cfg.param_count() + norms + bias * cfg.qkv_bias + pad:
+    if n_params != expected_params(cfg):
         raise AssertionError(f"{arch} has {n_params} parameters, "
                              f"param_count() {cfg.param_count()}")
     rec = dict(n_params=n_params, dtype=cfg.dtype, setup_s=setup_s,
@@ -2349,15 +2455,14 @@ def phase_decoder(torch, dev, arch, *, windowed: bool,
 
 def profile_decoder(torch, dev, model, cfg, windowed: bool) -> dict:
     """One prefill and one decode step under ``torch.profiler``."""
-    import numpy as np
     from repro_torch.models import zoo
     t = LONG_T if windowed else SERVE_PROMPT
     prefill = zoo.make_prefill_step(
         cfg, window=cfg.long_context_window if windowed else 0)
-    toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (1, t)), device=dev)
+    batch = model_inputs(torch, dev, cfg, t, 1)
+    toks = batch["tokens"]
     out = dict(prefill_T=t, prefill=profile_call(
-        torch, lambda: prefill(model, {"tokens": toks}), names=("swa",)))
+        torch, lambda: prefill(model, batch), names=("swa",)))
     cache = zoo.init_cache(cfg, 1, SERVE_PROMPT + SERVE_GEN, device=dev)
     step = zoo.make_serve_step(cfg)
     step(model, cache, toks[:, 0], 0)
@@ -2373,52 +2478,58 @@ def phase_reduced_moe(torch, dev):
     the same weights: the windowed prefill (S=300 past the reduced 256
     window; grok's softcap 30 in the kernel) and the full one, 4 decode
     steps from the prefill's cache, and ``run_serve``'s tokens."""
-    import numpy as np
+    out = {arch: reduced_card_vs_cpu(torch, dev, arch)
+           for arch in ("grok_1_314b", "llama4_maverick_400b_a17b")}
+    RESULT["reduced_moe"] = out
+    log(f"grok and llama4 reduced, fp32, card == CPU: {out}")
+
+
+def reduced_card_vs_cpu(torch, dev, arch) -> dict:
+    """``arch`` reduced, in fp32, card against CPU from the same weights:
+    the windowed prefill (300 text positions past the reduced 256 window,
+    after a vlm's 8-token prefix or beside an encdec's 8 frames) and the
+    full one, 4 decode steps from the prefill's cache, and ``run_serve``'s
+    tokens."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_serve
     from repro_torch.models import zoo
-    out = {}
-    for arch in ("grok_1_314b", "llama4_maverick_400b_a17b"):
-        cfg = get_config(arch).reduced()
-        models = {"cpu": zoo.init_model(cfg, seed=0, device="cpu")}
-        models[dev] = zoo.init_model(cfg, seed=0, device=dev)
-        models[dev].load_state_dict(models["cpu"].state_dict())
-        toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 300))
-        errs = {}
-        for w in (0, cfg.long_context_window):
-            res = {}
-            for d, m in models.items():
-                t = torch.as_tensor(toks, device=d)
-                last, cache = zoo.make_prefill_step(cfg, window=w)(
-                    m, {"tokens": t})
-                full = zoo.init_cache(cfg, 2, 304, device=d)
-                for n in ("k", "v", "pos"):
-                    full[n][:, :, :300] = cache[n]
-                step, logits = zoo.make_serve_step(cfg), [last]
-                tok = torch.argmax(last, -1)
-                for i in range(4):
-                    tok, lg, full = step(m, full, tok, 300 + i)
-                    logits.append(lg)
-                res[d] = [x.cpu() for x in (torch.stack(logits),
-                                            cache["k"], cache["v"])]
-            errs[f"window {w}"] = e = [rel_err(torch, a, b) for a, b in
-                                       zip(res[dev], res["cpu"])]
-            if not max(e) <= 1e-4:
-                raise AssertionError(f"{arch} reduced, window {w}: card vs "
-                                     f"CPU relative max err (logits, k, v) "
-                                     f"{e}")
-        toks_served = {d: run_serve(cfg, batch=2, prompt_len=40, gen=6,
-                                    seed=0, device=d, model=m)["tokens"]
-                       for d, m in models.items()}
-        if not (toks_served[dev] == toks_served["cpu"]).all():
-            raise AssertionError(f"{arch} reduced run_serve tokens: card "
-                                 f"{toks_served[dev]} vs CPU "
-                                 f"{toks_served['cpu']}")
-        out[arch] = dict(rel_err_logits_k_v=errs, rel_tolerance=1e-4,
-                         tokens=toks_served[dev].tolist())
-        del models
-    RESULT["reduced_moe"] = out
-    log(f"grok and llama4 reduced, fp32, card == CPU: {out}")
+    cfg = get_config(arch).reduced()
+    pref = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+    models = {"cpu": zoo.init_model(cfg, seed=0, device="cpu")}
+    models[dev] = zoo.init_model(cfg, seed=0, device=dev)
+    models[dev].load_state_dict(models["cpu"].state_dict())
+    errs = {}
+    for w in (0, cfg.long_context_window):
+        res = {}
+        for d, m in models.items():
+            batch = model_inputs(torch, d, cfg, pref + 300, 3, batch=2)
+            last, cache = zoo.make_prefill_step(cfg, window=w)(m, batch)
+            full = zoo.init_cache(cfg, 2, pref + 304, device=d)
+            for n in full:
+                if n in ("xk", "xv"):
+                    full[n].copy_(cache[n])
+                else:
+                    full[n][:, :, :pref + 300] = cache[n]
+            step, logits = zoo.make_serve_step(cfg), [last]
+            tok = torch.argmax(last, -1)
+            for i in range(4):
+                tok, lg, full = step(m, full, tok, pref + 300 + i)
+                logits.append(lg)
+            res[d] = [x.cpu() for x in (torch.stack(logits), cache["k"],
+                                        cache["v"])]
+        errs[f"window {w}"] = e = [rel_err(torch, a, b) for a, b in
+                                   zip(res[dev], res["cpu"])]
+        if not max(e) <= 1e-4:
+            raise AssertionError(f"{arch} reduced, window {w}: card vs CPU "
+                                 f"relative max err (logits, k, v) {e}")
+    served = {d: run_serve(cfg, batch=2, prompt_len=40, gen=6, seed=0,
+                           device=d, model=m)["tokens"]
+              for d, m in models.items()}
+    if not (served[dev] == served["cpu"]).all():
+        raise AssertionError(f"{arch} reduced run_serve tokens: card "
+                             f"{served[dev]} vs CPU {served['cpu']}")
+    return dict(rel_err_logits_k_v=errs, rel_tolerance=1e-4,
+                tokens=served[dev].tolist())
 
 
 def phase_moe_fl(torch, dev):
@@ -2515,6 +2626,7 @@ def main() -> int:
 
 
 def run_phases(torch) -> int:
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2588,6 +2700,15 @@ def run_phases(torch) -> int:
                   profile=profile)
     phase_reduced_moe(torch, dev)
     moe_fl_counts = phase_moe_fl(torch, dev)
+    release(torch)
+    pali_counts = phase_decoder(torch, dev, "paligemma_3b", windowed=True,
+                                fp32_check=True, profile=profile)
+    seamless_counts = phase_decoder(torch, dev, "seamless_m4t_medium",
+                                    windowed=True, profile=profile)
+    out = {arch: reduced_card_vs_cpu(torch, dev, arch)
+           for arch in ("paligemma_3b", "seamless_m4t_medium")}
+    RESULT["reduced_vlm_encdec"] = out
+    log(f"paligemma and seamless reduced, fp32, card == CPU: {out}")
 
     fl_path = f"FLServer smollm-135M, hungarian + joint, {FL_ROUNDS} rounds"
     paths = {
@@ -2616,9 +2737,13 @@ def run_phases(torch) -> int:
          "launches_predictor_fl": predictor_counts[name],
          "launches_moe_fl": moe_fl_counts[name],
          "launches_moonshot_prefill": moonshot_counts[name],
-         "launches_chatglm3_prefill": chatglm_counts[name], **kinfo[name]}
+         "launches_chatglm3_prefill": chatglm_counts[name],
+         "launches_paligemma_prefill": pali_counts[name],
+         "launches_seamless_prefill": seamless_counts[name], **kinfo[name]}
         for name, (src, rep, counts, path) in paths.items()]}
-    RESULT.update(card=smi, kernels=line["kernels"])
+    RESULT.update(card=smi, kernels=line["kernels"],
+                  script_s=time.perf_counter() - t_start)
+    log(f"all phases passed in {RESULT['script_s']:.1f} s")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(
         json.dumps(RESULT, indent=1, allow_nan=False))

@@ -28,8 +28,7 @@ from typing import Tuple
 class ModelConfig:
     """Transformer-family architecture description.
 
-    ``family`` selects the assembly (the port builds dense, moe, hybrid,
-    ssm):
+    ``family`` selects the assembly (models/zoo.py):
       dense | moe | ssm | hybrid | encdec | vlm
     """
 
@@ -316,12 +315,21 @@ class FLConfig:
 
 
 # ---------------------------------------------------------------------------
-# Registry (the architectures ported so far)
+# Registry (the reference's ten architectures)
 # ---------------------------------------------------------------------------
 
-ARCH_IDS = ["smollm_135m", "hymba_1_5b", "rwkv6_7b", "stablelm_1_6b",
-            "chatglm3_6b", "moonshot_v1_16b_a3b", "grok_1_314b",
-            "llama4_maverick_400b_a17b"]
+ARCH_IDS = [
+    "moonshot_v1_16b_a3b",
+    "llama4_maverick_400b_a17b",
+    "paligemma_3b",
+    "hymba_1_5b",
+    "seamless_m4t_medium",
+    "stablelm_1_6b",
+    "chatglm3_6b",
+    "smollm_135m",
+    "rwkv6_7b",
+    "grok_1_314b",
+]
 
 
 def canon(arch: str) -> str:
@@ -331,8 +339,6 @@ def canon(arch: str) -> str:
 def get_config(arch: str) -> ModelConfig:
     name = canon(arch)
     if name not in ARCH_IDS:
-        raise ValueError(f"architecture {arch!r} is not ported "
-                         f"(ported: {ARCH_IDS}; paligemma_3b and "
-                         f"seamless_m4t_medium are ROADMAP queue A item "
-                         f"4b)")
+        raise ValueError(f"unknown architecture {arch!r} (known: "
+                         f"{ARCH_IDS})")
     return importlib.import_module(f"repro_torch.configs.{name}").CONFIG

@@ -1,5 +1,9 @@
-// swa: causal sliding-window attention with GQA and an optional tanh
-// softcap. Query i attends keys j with i - W < j <= i:
+// swa: causal sliding-window attention with GQA, an optional prefix-LM
+// band and an optional tanh softcap. Query i attends keys j with
+// i - W < j and (j <= i or j < P), where the first P positions (a vlm's
+// image prefix; P = 0: none) are seen by every query within the window,
+// as the reference's prefix-LM mask does
+// (src/repro/models/layers.py:199-206):
 //
 //   s[i, j] = (q_i . k_j) / sqrt(hd)               (fp32)
 //   s       = cap * tanh(s / cap)                  (when cap > 0)
@@ -15,7 +19,9 @@
 // per query block, clamped at the left edge and masking the duplicate
 // visits; it needed S % bq == 0, W % bk == 0 and bq % bk == 0. Here a CTA
 // loops over exactly the key tiles of its band, so there are no duplicate
-// visits and S, W and every tail are free.
+// visits and S, W and every tail are free. A query tile's band is
+// [max(0, q0 - W + 1), max(q_last, min(P, S) - 1)]: the prefix adds key
+// tiles above the diagonal to the first ceil(P / tile) query tiles only.
 //
 // Bound on the H100: 4 * hd operations per (query, key) pair of the band
 // against one read of q, k, v and one write of the output, so at hymba's
@@ -34,8 +40,9 @@
 //    zeros) into a ring of NS stages with full/empty mbarriers. Tiles are
 //    swizzled (128 B rows at hd 64, 32 B at hd 16) as wgmma reads them. A
 //    128-byte swizzle spans 64 bf16 columns, so at hd 128 a tile is two
-//    such slabs side by side, one box each; S = Q K^T walks its eight k16
-//    steps over both, and O += P V runs one m64n64 product per slab.
+//    such slabs side by side and at hd 256 four, one box each; S = Q K^T
+//    walks its hd / 16 k16 steps over them, and O += P V runs one m64n64
+//    product per slab.
 //  - S = Q K^T is `wgmma.m64n64k16` bf16 -> fp32 with Q and K from shared
 //    memory, both K-major. O += P V is `wgmma.m64n{hd}k16` with P in
 //    registers (the S accumulator's layout is the A fragment's, so P is
@@ -50,8 +57,19 @@
 //    weight): a row with few keys does not average that out, and where its
 //    values cancel it can move the output by more than half a bf16 ulp of
 //    the row before the output's own rounding.
-//  - The output is staged in shared memory and written with 16-byte
-//    stores, rows past S skipped.
+//  - The output is staged in shared memory, laid out as the Q tile, and
+//    written with 16-byte stores, rows past S skipped.
+//  - hd 256 (paligemma): the O accumulator is 128 fp32 registers a thread
+//    and S 32 more. The producer is a whole warpgroup that gives its
+//    registers up (setmaxnreg 24), so each consumer thread takes 240, as
+//    FlashAttention-3 does at this head dim; the 16 k16 steps of each
+//    product add their descriptor offsets inside the asm, so they hold two
+//    descriptor registers and not 32 (a first build, at 224 registers a
+//    thread with the offsets added outside the asm, spilled 960 bytes and
+//    had its wgmmas serialised, ptxas C7512). One K +
+//    V stage is 64 KB, so the ring has two stages, and each warpgroup
+//    stages its output over its own rows of the Q tile once its last
+//    product has read them (192 KB in all, one CTA an SM).
 //  - The grid puts the g query heads of one KV head innermost, then the
 //    query blocks from the heaviest (latest) down, so the CTAs resident at
 //    one time re-read one (b, kvh)'s K and V from L2.
@@ -82,7 +100,7 @@ template <int HD>
 __global__ void __launch_bounds__(NT)
 swa_fp32(const float* __restrict__ q, const float* __restrict__ k,
          const float* __restrict__ v, float* __restrict__ out, int S, int H,
-         int KH, int W, float scale, float cap) {
+         int KH, int W, int P, float scale, float cap) {
   constexpr int HP = HD + 1;          // padded row of Q and K
   constexpr int DJ = HD / 16;         // output columns per thread
   extern __shared__ float smem[];
@@ -123,7 +141,8 @@ swa_fp32(const float* __restrict__ q, const float* __restrict__ k,
 
   const int q_last = min(q0 + BQ - 1, S - 1);
   const int lo = max(0, q0 - W + 1);
-  for (int k0 = lo; k0 <= q_last; k0 += BK) {
+  const int hi = max(q_last, min(P, S) - 1);   // the prefix's keys
+  for (int k0 = lo; k0 <= hi; k0 += BK) {
     __syncthreads();                  // previous tile fully consumed
     for (int e = tid; e < BK * HD; e += NT) {
       const int r = e / HD, d = e % HD;
@@ -160,7 +179,7 @@ swa_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        valid[j] = kp < S && kp <= qp && kp > qp - W;
+        valid[j] = kp < S && (kp <= qp || kp < P) && kp > qp - W;
         float x = s[i][j];
         if (cap > 0.0f) x = cap * tanhf(x / cap);
         s[i][j] = x;
@@ -218,7 +237,7 @@ swa_fp32(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v,
                         void* out, int B, int S, int H, int KH, int W,
-                        float scale, float cap, cudaStream_t stream) {
+                        int P, float scale, float cap, cudaStream_t stream) {
   constexpr int HP = HD + 1;
   const size_t smem =
       sizeof(float) * (BQ * HP + BK * HP + BK * HD + BQ * (BK + 1));
@@ -230,7 +249,7 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v,
   swa_fp32<HD><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, H, KH, W,
-      scale, cap);
+      P, scale, cap);
   return cudaGetLastError();
 }
 
@@ -242,8 +261,10 @@ constexpr int WQ = 64;               // query rows per consumer warpgroup
 constexpr int NWG = 2;               // consumer warpgroups
 constexpr int TQ = WQ * NWG;         // query rows per CTA
 constexpr int TK = 64;               // keys per tile
-constexpr int NS = 4;                // stages of the K/V ring
-constexpr int NTW = NWG * 128 + 32;  // + one producer warp
+// + one producer warp; at head_dim 256 a producer warpgroup, so that
+// setmaxnreg can move its registers to the consumers
+template <int HD>
+constexpr int NTW = NWG * 128 + (HD == 256 ? 128 : 32);
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -364,6 +385,73 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// wgmma_ss and the m64n64 wgmma_rs with a k16 step's offsets (OA, OB, in
+// 16-byte units) added to the descriptors inside the asm, so that the
+// steps hold the two base descriptors in registers and not one pair each
+// (head_dim 256: 16 steps of S = Q K^T, 16 products of O += P V)
+template <uint32_t OA, uint32_t OB>
+__device__ __forceinline__ void wgmma_ss_at(float (&d)[32], uint64_t a,
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %34, 0;\n"
+      "add.s64 da, %32, %35;\nadd.s64 db, %33, %36;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc), "n"(OA), "n"(OB));
+}
+
+template <uint32_t OB>
+__device__ __forceinline__ void wgmma_rs_at(float (&d)[32], const uint32_t* a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .b64 db;\nadd.s64 db, %36, %37;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, db, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(OB));
+}
+
+// S = Q K^T at head_dim 256: step kk in slab kk / 4, 32 bytes a step
+template <int QSLAB, int SLAB, int KK = 0>
+__device__ __forceinline__ void qk_256(float (&s)[32], uint64_t qd,
+                                       uint64_t kd) {
+  if constexpr (KK < 16) {
+    wgmma_ss_at<((KK / 4) * QSLAB >> 4) + 2 * (KK % 4),
+                ((KK / 4) * SLAB >> 4) + 2 * (KK % 4)>(s, qd, kd, KK > 0);
+    qk_256<QSLAB, SLAB, KK + 1>(s, qd, kd);
+  }
+}
+
+// O += P V at head_dim 256: k16 step kk (16 rows of V) times slab j
+template <int SLAB, int ROW, int I = 0>
+__device__ __forceinline__ void pv_256(float (&o)[128],
+                                       const uint32_t (&p)[4][4],
+                                       uint64_t vd) {
+  if constexpr (I < 16) {
+    constexpr int kk = I / 4, j = I % 4;
+    wgmma_rs_at<((j * SLAB + 16 * ROW * kk) >> 4)>(
+        *reinterpret_cast<float(*)[32]>(o + 32 * j), p[kk], vd);
+    pv_256<SLAB, ROW, I + 1>(o, p, vd);
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -389,15 +477,20 @@ __device__ __forceinline__ float quad_sum(float x) {
 // Shared-memory layout of one CTA; every tile is 1024-byte aligned, as the
 // 128-byte swizzle needs. A tile of HD columns is stored as SLABS slabs of
 // COLS columns side by side ([rows][COLS] each, swizzled): a 128-byte
-// swizzle spans at most 64 bf16 columns, so head_dim 128 takes two slabs,
-// each loaded by its own TMA box and laid out as a head_dim-64 tile.
+// swizzle spans at most 64 bf16 columns, so head_dim 128 takes two slabs
+// and 256 four, each loaded by its own TMA box and laid out as a
+// head_dim-64 tile.
 template <int HD>
 struct Smem {
   static constexpr int COLS = HD < 64 ? HD : 64; // columns of one slab
   static constexpr int SLABS = HD / COLS;
   static constexpr int ROW = COLS * 2;           // bytes of one slab row
+  // stages of the K/V ring: one K + V stage is 64 KB at head_dim 256
+  static constexpr int NS = HD == 256 ? 2 : 4;
   static constexpr int Q = 0;                    // SLABS x [TQ][COLS]
-  static constexpr int O = Q + TQ * HD * 2;      // [TQ][HD], output staging
+  // output staging, laid out as Q; at head_dim 256 it is the Q tile itself
+  // (each warpgroup writes its own rows after its last product)
+  static constexpr int O = HD == 256 ? Q : Q + TQ * HD * 2;
   static constexpr int K = O + TQ * HD * 2;      // NS x SLABS x [TK][COLS]
   static constexpr int V = K + NS * TK * HD * 2; // NS x SLABS x [TK][COLS]
   static constexpr int BAR = V + NS * TK * HD * 2;  // full[NS], empty[NS], q
@@ -413,17 +506,19 @@ struct Smem {
 // At head_dim 16 and 64 two CTAs fit on an SM (96 registers a thread):
 // four consumer warpgroups, so one's softmax runs beside another's
 // products. At 128 the O accumulator alone is 64 registers a thread and
-// the shared memory ~193 KB: one CTA an SM.
+// the shared memory ~193 KB: one CTA an SM; at 256 the accumulator is 128
+// registers and the shared memory 192 KB with two stages.
 template <int HD>
-__global__ void __launch_bounds__(NTW, HD == 128 ? 1 : 2)
+__global__ void __launch_bounds__(NTW<HD>, HD >= 128 ? 1 : 2)
 swa_wgmma(const __grid_constant__ CUtensorMap qmap,
           const __grid_constant__ CUtensorMap kmap,
           const __grid_constant__ CUtensorMap vmap,
           __nv_bfloat16* __restrict__ out, int S, int H, int KH, int W,
-          float scale_log2, float cap) {
+          int P, float scale_log2, float cap) {
   using L = Smem<HD>;
-  static_assert(HD == 16 || HD == 64 || HD == 128,
-                "head_dim 16, 64 or 128");
+  constexpr int NS = L::NS;
+  static_assert(HD == 16 || HD == 64 || HD == 128 || HD == 256,
+                "head_dim 16, 64, 128 or 256");
   extern __shared__ uint8_t smem_raw[];
   // align the tiles to 1024 bytes of the shared window
   const uint32_t raw = smem_u32(smem_raw);
@@ -447,8 +542,9 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
   const int h = kvh * g + hg;
   const int q0 = qb * TQ;
   const int q_last = min(q0 + TQ - 1, S - 1);
+  const int p_last = min(P, S) - 1;              // the prefix's last key
   const int t_lo = max(0, q0 - W + 1) / TK;      // the CTA's key tiles
-  const int n_tiles = q_last / TK - t_lo + 1;
+  const int n_tiles = max(q_last, p_last) / TK - t_lo + 1;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -463,7 +559,10 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
 
   // tile t of the CTA sits in stage t % NS, filled for the (t / NS)-th time
   if (tid >= NWG * 128) {
-    // producer: one thread issues every copy
+    // producer: one thread issues every copy; at head_dim 256 its
+    // warpgroup first gives its registers up to the consumers
+    if constexpr (HD == 256)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
     if (tid == NWG * 128) {
       mbar_expect_tx(qbar, TQ * HD * 2);
       for (int j = 0; j < L::SLABS; ++j)
@@ -486,7 +585,10 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
     return;
   }
 
-  // consumers: warpgroup wg owns query rows r0 .. r0 + 63
+  // consumers: warpgroup wg owns query rows r0 .. r0 + 63; at head_dim 256
+  // each takes 240 registers a thread (O alone is 128)
+  if constexpr (HD == 256)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
   const int wg = tid / 128;
   const int lane = tid % 32;
   const int quad = lane % 4;
@@ -495,7 +597,8 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
   const int qp0 = r0 + row, qp1 = qp0 + 8;
   // this warpgroup's tiles, as indices into the CTA's (none if r0 >= S)
   const int my_lo = max(0, r0 - W + 1) / TK - t_lo;
-  const int my_hi = r0 < S ? min(r0 + WQ - 1, S - 1) / TK - t_lo : -1;
+  const int my_hi =
+      r0 < S ? max(min(r0 + WQ - 1, S - 1), p_last) / TK - t_lo : -1;
 
   const uint64_t qdesc = make_desc(base + L::Q + wg * WQ * L::ROW, 16,
                                    L::ATOM, L::MODE);   // slab 0
@@ -516,11 +619,15 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
       wgmma_fence();
       const uint64_t kdesc =
           make_desc(base + L::K + st * L::TILE, 16, L::ATOM, L::MODE);
+      if constexpr (HD == 256) {
+        qk_256<L::QSLAB, L::SLAB>(s, qdesc, kdesc);
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int slab = kk / (L::COLS / 16), in = kk % (L::COLS / 16);
-        wgmma_ss(s, qdesc + ((slab * L::QSLAB) >> 4) + 2 * in,
-                 kdesc + ((slab * L::SLAB) >> 4) + 2 * in, kk > 0);
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int slab = kk / (L::COLS / 16), in = kk % (L::COLS / 16);
+          wgmma_ss(s, qdesc + ((slab * L::QSLAB) >> 4) + 2 * in,
+                   kdesc + ((slab * L::SLAB) >> 4) + 2 * in, kk > 0);
+        }
       }
       wgmma_commit();
       wgmma_wait();
@@ -542,7 +649,8 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
         for (int i = 0; i < TK / 2; ++i) {
           const int kp = k0 + 8 * (i / 4) + 2 * quad + (i & 1);
           const int qp = (i & 2) ? qp1 : qp0;
-          if (!(kp <= qp && kp > qp - W && kp < S)) s[i] = -INFINITY;
+          if (!((kp <= qp || kp < P) && kp > qp - W && kp < S))
+            s[i] = -INFINITY;
         }
       }
       float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -593,13 +701,17 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
       wgmma_fence();
       const uint64_t vdesc = make_desc(base + L::V + st * L::TILE, L::ATOM,
                                        L::ATOM, L::MODE);
+      if constexpr (HD == 256) {
+        pv_256<L::SLAB, L::ROW>(o, p, vdesc);
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < TK / 16; ++kk)
+        for (int kk = 0; kk < TK / 16; ++kk)
 #pragma unroll
-        for (int j = 0; j < L::SLABS; ++j)
-          wgmma_rs(*reinterpret_cast<float(*)[HD / 2 / L::SLABS]>(
-                       o + j * (HD / 2 / L::SLABS)),
-                   p[kk], vdesc + ((j * L::SLAB + 16 * L::ROW * kk) >> 4));
+          for (int j = 0; j < L::SLABS; ++j)
+            wgmma_rs(*reinterpret_cast<float(*)[HD / 2 / L::SLABS]>(
+                         o + j * (HD / 2 / L::SLABS)),
+                     p[kk], vdesc + ((j * L::SLAB + 16 * L::ROW * kk) >> 4));
+      }
       wgmma_commit();
       wgmma_wait();
       fence_regs(o);
@@ -608,22 +720,25 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) mbar_arrive(empty0 + 8 * st);
   }
 
-  // out = o / max(l, 1e-30) in bf16, staged in shared memory with its
-  // 16-byte chunks rotated by row (no bank conflicts), then 16-byte stores
+  // out = o / max(l, 1e-30) in bf16, staged in shared memory as the Q
+  // tile is laid out (this warpgroup's rows of each slab), the 16-byte
+  // chunks of a slab row rotated by the row (no bank conflicts), then
+  // 16-byte stores. Chunk j of a row (columns 8j .. 8j + 7) is chunk
+  // j % CS of slab j / CS.
   constexpr int CH = HD / 8;                      // 16-byte chunks per row
-  constexpr int OROW = HD * 2;                    // bytes of a staged row
+  constexpr int CS = L::ROW / 16;                 // per slab row
   const float d0 = fmaxf(quad_sum(l0), 1e-30f);
   const float d1 = fmaxf(quad_sum(l1), 1e-30f);
-  uint8_t* stage = smem + L::O + wg * WQ * OROW;
+  uint8_t* stage = smem + L::O + wg * WQ * L::ROW;
   const int ra = row, rb = row + 8;
 #pragma unroll
   for (int j = 0; j < CH; ++j) {
-    *reinterpret_cast<uint32_t*>(stage + ra * OROW + ((j ^ (ra % CH)) * 16)
-                                 + 4 * quad) =
-        pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
-    *reinterpret_cast<uint32_t*>(stage + rb * OROW + ((j ^ (rb % CH)) * 16)
-                                 + 4 * quad) =
-        pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+    uint8_t* sp = stage + (j / CS) * L::QSLAB + 4 * quad;
+    const int c = j % CS;
+    *reinterpret_cast<uint32_t*>(sp + ra * L::ROW + ((c ^ (ra % CS)) * 16))
+        = pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
+    *reinterpret_cast<uint32_t*>(sp + rb * L::ROW + ((c ^ (rb % CS)) * 16))
+        = pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
   }
   asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
   const int64_t q_row = static_cast<int64_t>(H) * HD;
@@ -632,7 +747,8 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
     const int qp = r0 + r;
     if (qp >= S) continue;
     const uint4 val = *reinterpret_cast<const uint4*>(
-        stage + r * OROW + ((c ^ (r % CH)) * 16));
+        stage + (c / CS) * L::QSLAB + r * L::ROW
+        + (((c % CS) ^ (r % CS)) * 16));
     *reinterpret_cast<uint4*>(out + (static_cast<int64_t>(b) * S + qp) * q_row
                               + h * HD + c * 8) = val;
   }
@@ -685,7 +801,7 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, int B, int S, int H, int KH, int W,
-                        float scale, float cap, cudaStream_t stream) {
+                        int P, float scale, float cap, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   if (!encode(&qmap, q, B, S, H, HD, TQ) ||
       !encode(&kmap, k, B, S, KH, HD, TK) ||
@@ -697,8 +813,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const int64_t ctas = static_cast<int64_t>(B) * H * ((S + TQ - 1) / TQ);
   if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
-  swa_wgmma<HD><<<static_cast<unsigned>(ctas), NTW, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, H, KH, W,
+  swa_wgmma<HD><<<static_cast<unsigned>(ctas), NTW<HD>, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, H, KH, W, P,
       scale * LOG2E, cap);
   return cudaGetLastError();
 }
@@ -706,24 +822,26 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = fp32 (CUDA cores), 1 = bf16 (wgmma + TMA); q, k, v and out
-// share it. hd in {16, 64, 128} (the reduced and the full hymba, and the
-// head_dim-128 decoders: chatglm3, moonshot, grok, llama4); H % KH == 0;
-// W >= 1; cap <= 0: no softcap. bf16 pointers must be 16-byte aligned.
+// share it. hd in {16, 64, 128, 256} (the reduced and the full hymba, the
+// head_dim-128 decoders: chatglm3, moonshot, grok, llama4; paligemma);
+// H % KH == 0; W >= 1; P >= 0 prefix positions (0: none); cap <= 0: no
+// softcap. bf16 pointers must be 16-byte aligned.
 extern "C" int repro_swa(const void* q, const void* k, const void* v,
                          void* out, int dtype, int B, int S, int H, int KH,
-                         int hd, int W, float scale, float cap, int device,
-                         void* stream) {
+                         int hd, int W, int P, float scale, float cap,
+                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || W < 1 ||
-      (hd != 16 && hd != 64 && hd != 128) || dtype < 0 || dtype > 1)
+  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || W < 1 || P < 0 ||
+      (hd != 16 && hd != 64 && hd != 128 && hd != 256) || dtype < 0 ||
+      dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto launch = dtype == 0
-      ? (hd == 128 ? launch_fp32<128> : hd == 64 ? launch_fp32<64>
-                                                 : launch_fp32<16>)
-      : (hd == 128 ? launch_bf16<128> : hd == 64 ? launch_bf16<64>
-                                                 : launch_bf16<16>);
-  return static_cast<int>(launch(q, k, v, out, B, S, H, KH, W, scale, cap,
-                                 s));
+      ? (hd == 256 ? launch_fp32<256> : hd == 128 ? launch_fp32<128>
+         : hd == 64 ? launch_fp32<64> : launch_fp32<16>)
+      : (hd == 256 ? launch_bf16<256> : hd == 128 ? launch_bf16<128>
+         : hd == 64 ? launch_bf16<64> : launch_bf16<16>);
+  return static_cast<int>(launch(q, k, v, out, B, S, H, KH, W, P, scale,
+                                 cap, s));
 }

@@ -69,6 +69,28 @@ from repro_torch.obs import RunLedger, json_safe, trace
 from repro_torch.sim import NumpyScenario, get_scenario_config
 
 # a round's predictor telemetry when nothing was predicted
+# families the FL round does not train. The reference's round cannot
+# either: its client batches carry tokens only, so ``zoo.token_loss`` cuts
+# ``n_prefix_tokens`` logits that a prefix-less vlm batch never had
+# (src/repro/models/zoo.py:221-222; a shape error), and ``zoo.forward``
+# reads the encdec batch's missing ``"frames"`` (zoo.py:197-198; a
+# KeyError).
+UNTRAINED_FAMILIES = ("vlm", "encdec")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse a config whose family the FL round does not train."""
+    if cfg.family in UNTRAINED_FAMILIES:
+        raise ValueError(
+            f"the FL round does not train the {cfg.family} family "
+            f"({cfg.name}): its client batches are tokens only, with no "
+            f"image prefix or encoder frames, and the reference's round "
+            f"fails on them too (vlm: zoo.token_loss cuts "
+            f"{cfg.n_prefix_tokens} prefix logits the batch never had, "
+            f"src/repro/models/zoo.py:221-222; encdec: zoo.forward reads "
+            f"the missing batch['frames'], zoo.py:197-198)")
+
+
 _NO_PREDICTION = {"n_predicted": 0, "pred_loss": float("nan"),
                   "pred_error": float("nan")}
 
@@ -128,6 +150,7 @@ class FLServer:
                  pairing: Optional[str] = None,
                  selection: Optional[str] = None,
                  predictor: Optional[str] = None):
+        check_trainable(model_cfg)
         if pairing is not None:
             fl = dataclasses.replace(fl, pairing=pairing)
         if selection is not None:

@@ -50,8 +50,8 @@ SIGNATURES = {
     "repro_fedagg": (_P, _I, _I, _L, _P, _P, _I, _L, _I, _P),
     "repro_planner": (_P, _P, _P, _P, _P, _P, _P, _L, _I,
                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P),
-    "repro_swa": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                  _P),
+    "repro_swa": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                  _I, _P),
     "repro_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _I, _I, _I, _I, _P),
 }

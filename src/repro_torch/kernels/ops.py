@@ -27,6 +27,7 @@ def wkv6(r, k, v, w_log, u, s0=None, *, chunk: int = _wkv6.CHUNK):
     return _wkv6.wkv6(r, k, v, w_log, u, s0, chunk=chunk)
 
 
-def swa(q, k, v, *, window: int, softcap: float = 0.0):
-    """Sliding-window attention (softcap honoured on every device)."""
-    return _swa.swa(q, k, v, window=window, softcap=softcap)
+def swa(q, k, v, *, window: int, softcap: float = 0.0, prefix: int = 0):
+    """Sliding-window attention with the first ``prefix`` keys seen by
+    every query within the window (softcap honoured on every device)."""
+    return _swa.swa(q, k, v, window=window, softcap=softcap, prefix=prefix)

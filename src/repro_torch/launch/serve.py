@@ -10,9 +10,21 @@ caller of ``run_serve`` asks for the CPU):
 ``run_serve`` is the body as a function, which ``chip_smoke.py`` calls with
 the full configurations. Attention families prefill the prompt with
 ``make_prefill_step`` and copy the prefill's k, v and pos (and the hybrid
-family's final SSM state) into a linear decode cache of length
-``prompt_len + gen``; the ssm family runs the prompt through decode steps.
-Then ``gen - 1`` greedy decode steps follow the first generated token.
+family's final SSM state) into a linear decode cache; the ssm family runs
+the prompt through decode steps. Then ``gen - 1`` greedy decode steps
+follow the first generated token.
+
+The vlm and encdec families take a second input, drawn from the same
+``default_rng(seed)`` after the prompt, in the reference's order: the
+vlm's ``n_prefix_tokens`` image embeddings (``prefix``), put before the
+prompt, so the prefill fills ``P + prompt_len`` positions and decode step
+i runs at position ``P + prompt_len + i``; the encdec family's encoder
+frames, whose cross ``xk``, ``xv`` the prefill places in the cache beside
+the prompt's self k, v. The cache holds ``P + prompt_len + gen`` positions
+(P = 0 but for the vlm family). The reference's command line sizes it
+``prompt_len + gen``, which the vlm prefill overflows (ROADMAP, "Behaviours
+of the reference"); the tests hold the port against the reference's own
+``zoo`` steps driven with a cache of this size.
 """
 from __future__ import annotations
 
@@ -34,7 +46,8 @@ def _sync(dev: torch.device) -> None:
 
 def run_serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
               seed: int = 0, device="cuda", model=None) -> dict:
-    """Serve one prompt batch greedily. ``model`` (built by
+    """Serve one prompt batch greedily (a vlm's with its image prefix, an
+    encdec's with its encoder frames). ``model`` (built by
     ``zoo.init_model(cfg, seed=seed)`` when None) holds the weights. Returns
     the generated tokens (batch, gen) as numpy and the timings (host clock,
     ending in a synchronise on the card)."""
@@ -45,13 +58,19 @@ def run_serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
     _sync(dev)
     setup_s = time.perf_counter() - t0
     b, s = batch, prompt_len
-    max_len = s + gen
+    pref = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
     rng = np.random.default_rng(seed)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
                              dtype=torch.long, device=dev)
+    inputs = {"tokens": prompt}
+    if cfg.family in ("vlm", "encdec"):
+        inputs["prefix" if cfg.family == "vlm" else "frames"] = \
+            torch.as_tensor(rng.normal(size=(b, cfg.n_prefix_tokens,
+                                             cfg.prefix_dim)),
+                            dtype=getattr(torch, cfg.dtype), device=dev)
 
     serve = zoo.make_serve_step(cfg)
-    cache = zoo.init_cache(cfg, b, max_len, device=dev)
+    cache = zoo.init_cache(cfg, b, pref + s + gen, device=dev)
     t0 = time.perf_counter()
     if cfg.family == "ssm":
         # recurrent archs: run the prompt through decode steps
@@ -59,13 +78,15 @@ def run_serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
             tok, _, cache = serve(model, cache, prompt[:, i], i)
     else:
         prefill = zoo.make_prefill_step(cfg)
-        last_logits, pcache = prefill(model, {"tokens": prompt})
+        last_logits, pcache = prefill(model, inputs)
         # place the prefill KV (post-RoPE) into the serving cache
+        plen = pref + s
         for name in ("k", "v", "pos"):
-            cache[name][:, :, :s] = pcache[name][:, :, :s].to(
+            cache[name][:, :, :plen] = pcache[name][:, :, :plen].to(
                 cache[name].dtype)
-        if "ssm_h" in cache:  # hybrid: carry the final SSM state over
-            cache["ssm_h"].copy_(pcache["ssm_h"])
+        for name in ("ssm_h", "xk", "xv"):   # hybrid SSM state; encdec
+            if name in cache:                # cross k, v over the frames
+                cache[name].copy_(pcache[name])
         del pcache
         tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
     _sync(dev)
@@ -74,7 +95,7 @@ def run_serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
     out_tokens = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        tok, _, cache = serve(model, cache, tok, s + i)
+        tok, _, cache = serve(model, cache, tok, pref + s + i)
         out_tokens.append(tok)
     _sync(dev)
     t_decode = time.perf_counter() - t0

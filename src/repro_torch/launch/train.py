@@ -12,8 +12,12 @@ and, with ``--ckpt-dir``, a checkpoint of the final parameters.
         [--out experiments/fl] [--device cpu]
 
 Without ``--full-size`` the model is the reduced variant (``d_model=64``,
-``d_ff=128``, ``vocab_size=64``); ``--full-size`` runs smollm-135M at its
-published widths. ``main(argv)`` runs in-process.
+``d_ff=128``, ``vocab_size=64``); ``--full-size`` runs the arch at its
+published widths. ``main(argv)`` runs in-process. ``--arch`` takes the ten
+archs, and refuses the vlm and encdec ones (paligemma_3b,
+seamless_m4t_medium) with a ValueError: the round feeds clients tokens
+only, and the reference's round fails on those families too
+(``fl.server.check_trainable``).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.configs import ARCH_IDS, FLConfig, NOMAConfig, get_config
 from repro_torch.configs.base import POLICIES
 from repro_torch.data import TaskConfig, bayes_optimal_accuracy
 from repro_torch.fl import FLServer
+from repro_torch.fl.server import check_trainable
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -63,6 +68,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ``"server"``."""
     args = parse_args(argv)
     cfg = get_config(args.arch)
+    check_trainable(cfg)         # the vlm and encdec families: ValueError
     if not args.full_size:
         cfg = dataclasses.replace(cfg.reduced(), d_model=64, d_ff=128,
                                   vocab_size=64)

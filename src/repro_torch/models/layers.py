@@ -1,8 +1,9 @@
-"""Core transformer layers: RMSNorm, RoPE, GQA attention (direct, sliding
-window, KV-cache decode), gated MLP.
+"""Core transformer layers: RMSNorm, RoPE, sinusoid positions, GQA
+attention (direct, sliding window, prefix-LM, KV-cache decode), gated MLP.
 
 Counterpart of ``src/repro/models/layers.py`` (``rms_norm``,
-``rope_angles``/``apply_rope``, ``qkv_proj``/``out_proj``,
+``rope_angles``/``apply_rope``, ``sinusoid_pos_emb``,
+``qkv_proj``/``out_proj``,
 ``_direct_attention``, ``flash_attention``, ``decode_attention``,
 ``init_kv_cache``, ``cache_write``, the GLU MLP). Weights keep the
 reference's ``(in, out)`` layout and are applied as ``x @ W``, so
@@ -13,9 +14,12 @@ Attention without a window is the reference's direct path
 cast back to q's dtype. The reference takes that path whenever
 ``sq * skv <= 65536`` and a chunked online softmax above; the port uses the
 direct path at every length, the same function summed in another order.
-With a window (the hybrid family's prefill), ``flash_attention`` calls
-``ops.swa``: the CUDA sliding-window kernel for CUDA tensors, the same
-direct math with the band for CPU tensors.
+With a window (the hybrid family's prefill, the windowed prefill of the
+others), causal ``flash_attention`` calls ``ops.swa``, the prefix-LM band
+included: the CUDA sliding-window kernel for CUDA tensors, the same direct
+math with the band for CPU tensors. Non-causal attention (the encoder's,
+and cross-attention over the encoder memory, whose lengths differ) is the
+direct path.
 """
 from __future__ import annotations
 
@@ -65,20 +69,41 @@ def apply_rope(x, cos, sin, rope_frac: float):
     return torch.cat([out, x_pass], dim=-1)
 
 
+def sinusoid_pos_emb(positions, d_model: int):
+    """Additive sinusoid embedding of the NoPE families (rope_frac 0 and
+    encdec): positions (...,) -> (..., d_model) fp32, sines then
+    cosines."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def add_positions(x, start: int = 0):
+    """x (B, S, D) plus the sinusoid embedding of positions start ..
+    start + S - 1, cast to x's dtype."""
+    pos = torch.arange(start, start + x.shape[1], device=x.device)
+    return x + sinusoid_pos_emb(pos, x.shape[-1])[None].to(x.dtype)
+
+
 def direct_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
-                     window: int = 0):
+                     window: int = 0, prefix_len: int = 0):
     """q (B,Sq,H,hd), k/v (B,Skv,KH,hd) -> (B,Sq,H,hd) in q's dtype."""
     return attention_plain(q, k, v, causal=causal, window=window,
-                           softcap=cfg.logit_softcap)
+                           softcap=cfg.logit_softcap, prefix_len=prefix_len)
 
 
 def flash_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
-                    window: int = 0):
-    """Full-sequence attention; ``window`` > 0 (causal) keeps keys j with
-    i - window < j <= i and goes through ``ops.swa``."""
+                    window: int = 0, prefix_len: int = 0):
+    """Full-sequence attention; with ``causal``, keys j < ``prefix_len``
+    are seen by every query (prefix-LM). ``window`` > 0 (causal) keeps keys
+    j > i - window and goes through ``ops.swa``."""
     if window > 0 and causal:
-        return ops.swa(q, k, v, window=window, softcap=cfg.logit_softcap)
-    return direct_attention(q, k, v, cfg, causal=causal, window=window)
+        return ops.swa(q, k, v, window=window, softcap=cfg.logit_softcap,
+                       prefix=prefix_len)
+    return direct_attention(q, k, v, cfg, causal=causal, window=window,
+                            prefix_len=prefix_len)
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask, cfg: ModelConfig):
@@ -163,14 +188,15 @@ class Attention(nn.Module):
         b, s = attn_out.shape[:2]
         return attn_out.reshape(b, s, -1) @ self.wo
 
-    def forward(self, x, cos, sin, *, window: int = 0):
+    def forward(self, x, cos, sin, *, window: int = 0, prefix_len: int = 0):
         """Full-sequence attention (``_attn_seq`` of the reference).
         Returns (out (B,S,D), (k, v) post-RoPE)."""
         cfg = self.cfg
         q, k, v = self.qkv_proj(x)
         q = apply_rope(q, cos, sin, cfg.rope_frac)
         k = apply_rope(k, cos, sin, cfg.rope_frac)
-        out = flash_attention(q, k, v, cfg, causal=True, window=window)
+        out = flash_attention(q, k, v, cfg, causal=True, window=window,
+                              prefix_len=prefix_len)
         return self.out_proj(out), (k, v)
 
 

@@ -1,4 +1,5 @@
-"""Decoder-LM assembly of the dense, moe, hybrid and ssm (RWKV6) families.
+"""Decoder-LM assembly of the dense, moe, hybrid, ssm (RWKV6) and vlm
+families.
 
 Counterpart of ``src/repro/models/transformer.py``: block init
 (``_init_block``/``init_decoder``), ``block_seq``, ``block_decode``,
@@ -13,6 +14,15 @@ reference, whatever the model dtype.
 
 The moe family is the dense block with ``moe`` (models/moe.py) in the
 place of ``mlp``; ``forward`` sums the layers' load-balance losses.
+
+The vlm family (paligemma) is the dense decoder with a ``prefix_proj``
+(prefix_dim, D): ``forward(tokens, prefix=)`` projects the prefix (the
+stubbed image patches) and puts it before the text, runs positions
+0..P+S-1, and every attention sees the first P positions bidirectionally
+(the prefix-LM band; ``layers.flash_attention(prefix_len=)``). A config
+without rotary positions (rope_frac 0, NoPE) adds the sinusoid embedding
+to the inputs instead, at every position in ``forward`` and at ``pos`` in
+``decode``. The encdec family is ``models/encdec.py``.
 
 Full-sequence attention takes the ``window`` of ``forward`` (the
 reference's ``decoder_forward(window=)``): 0 is causal attention over the
@@ -35,7 +45,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm")
 
 
 def _rope_dim(cfg: ModelConfig) -> int:
@@ -78,10 +88,11 @@ class Block(nn.Module):
                        + L.rms_norm(ssm_out, self.ln_ssm_o, self.eps))
         return x + fused
 
-    def forward(self, x, cos, sin, *, window: int = 0):
+    def forward(self, x, cos, sin, *, window: int = 0, prefix_len: int = 0):
         """Returns (x_out, aux or None, (k, v), new_states or None)."""
         h = L.rms_norm(x, self.ln1, self.eps)
-        attn_out, kv = self.attn(h, cos, sin, window=window)
+        attn_out, kv = self.attn(h, cos, sin, window=window,
+                                 prefix_len=prefix_len)
         states = None
         if self.cfg.family == "hybrid":
             ssm_out, h_last = SSM.ssm_scan(self.ssm, h)
@@ -158,6 +169,20 @@ class RWKVBlock(nn.Module):
         return x + cm_out
 
 
+def unembed(model, x):
+    """RMSNorm and the (tied) unembedding of ``model`` (a ``DecoderLM`` or
+    an ``encdec.EncDecLM``), the padded vocabulary masked to -1e9."""
+    cfg = model.cfg
+    x = L.rms_norm(x, model.norm_f, cfg.norm_eps)
+    logits = x @ (model.embed.T if cfg.tie_embeddings else model.lm_head)
+    if cfg.padded_vocab != cfg.vocab_size:
+        mask = torch.where(
+            torch.arange(cfg.padded_vocab, device=x.device)
+            < cfg.vocab_size, 0.0, -1e9).to(logits.dtype)
+        logits = logits + mask
+    return logits
+
+
 def _init_seq_states(cfg: ModelConfig, batch: int, dtype, device):
     """Zero recurrent states of one RWKV6 layer."""
     d, hs = cfg.d_model, cfg.rwkv_head_size
@@ -168,18 +193,16 @@ def _init_seq_states(cfg: ModelConfig, batch: int, dtype, device):
 
 
 class DecoderLM(nn.Module):
-    """Decoder LM: embed -> blocks -> RMSNorm -> (tied) unembed."""
+    """Decoder LM: embed [+ projected prefix] -> blocks -> RMSNorm ->
+    (tied) unembed."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        if cfg.family not in FAMILIES or cfg.n_prefix_tokens:
-            raise NotImplementedError(
-                f"model family {cfg.family!r} (or a prefix input) is ROADMAP "
-                f"queue A item 4b; the port builds {FAMILIES}")
-        if cfg.family != "ssm" and cfg.rope_frac <= 0.0:
-            raise NotImplementedError(
-                "NoPE (rope_frac == 0, sinusoid positions) is ROADMAP queue "
-                "A item 4b")
+        if cfg.family not in FAMILIES:
+            raise ValueError(
+                f"DecoderLM builds the families {FAMILIES}, not "
+                f"{cfg.family!r}; the encdec family is models/encdec.py "
+                f"(zoo.init_model builds either)")
         dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(
@@ -191,30 +214,37 @@ class DecoderLM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(
                 cfg.d_model, cfg.padded_vocab, dtype=dtype, device=device))
+        if cfg.n_prefix_tokens:
+            self.prefix_proj = nn.Parameter(torch.empty(
+                cfg.prefix_dim, cfg.d_model, dtype=dtype, device=device))
 
-    def unembed(self, x):
+    def embed_inputs(self, tokens, prefix=None):
+        """tokens (B, S) [+ prefix (B, P, prefix_dim)] -> (x (B, P + S, D),
+        P) (``embed_inputs`` of the reference); NoPE configs add the
+        sinusoid embedding at positions 0..P+S-1."""
         cfg = self.cfg
-        x = L.rms_norm(x, self.norm_f, cfg.norm_eps)
-        logits = x @ (self.embed.T if cfg.tie_embeddings else self.lm_head)
-        if cfg.padded_vocab != cfg.vocab_size:
-            mask = torch.where(
-                torch.arange(cfg.padded_vocab, device=x.device)
-                < cfg.vocab_size, 0.0, -1e9).to(logits.dtype)
-            logits = logits + mask
-        return logits
+        x = self.embed[tokens]
+        prefix_len = 0
+        if cfg.n_prefix_tokens and prefix is not None:
+            x = torch.cat([prefix.to(x.dtype) @ self.prefix_proj, x], dim=1)
+            prefix_len = prefix.shape[1]
+        if cfg.rope_frac == 0.0 and cfg.n_heads:
+            x = L.add_positions(x)
+        return x, prefix_len
 
-    def forward(self, tokens, *, window: int = 0,
+    def forward(self, tokens, prefix=None, *, window: int = 0,
                 collect_cache: bool = False, last_only: bool = False,
                 with_aux: bool = False):
-        """tokens (B, S) int -> logits (B, S, padded_vocab) (``last_only``:
-        (B, 1, V)); with ``collect_cache`` also the stacked per-layer cache
-        (k, v post-RoPE and pos; ssm_h; or the RWKV states), with
+        """tokens (B, S) int [+ prefix (B, P, prefix_dim) of a vlm config]
+        -> logits (B, P + S, padded_vocab) (``last_only``: (B, 1, V)); with
+        ``collect_cache`` also the stacked per-layer cache (k, v post-RoPE
+        and pos over the P + S positions; ssm_h; or the RWKV states), with
         ``with_aux`` the layers' summed MoE aux loss (0.0 without experts):
         logits[, cache][, aux]. ``window`` > 0 is sliding-window attention;
         the hybrid family takes ``cfg.long_context_window`` for 0."""
         cfg = self.cfg
-        x = self.embed[tokens]
-        b, s = tokens.shape
+        x, prefix_len = self.embed_inputs(tokens, prefix)
+        b, s = x.shape[:2]
         caches: dict = {}
         aux = 0.0
 
@@ -237,7 +267,8 @@ class DecoderLM(nn.Module):
             cos, sin = L.rope_angles(positions, _rope_dim(cfg),
                                      cfg.rope_theta)
             for i, blk in enumerate(self.blocks):
-                x, layer_aux, (k, v), st = blk(x, cos, sin, window=window)
+                x, layer_aux, (k, v), st = blk(x, cos, sin, window=window,
+                                               prefix_len=prefix_len)
                 if layer_aux is not None:
                     aux = aux + layer_aux
                 if collect_cache:
@@ -250,7 +281,7 @@ class DecoderLM(nn.Module):
                     cfg.n_layers, b, s).contiguous()
         if last_only:
             x = x[:, -1:]
-        out = (self.unembed(x),)
+        out = (unembed(self, x),)
         if collect_cache:
             out += (caches,)
         if with_aux:
@@ -261,14 +292,17 @@ class DecoderLM(nn.Module):
         """One decode step (``decoder_decode``). token (B,) int; ``pos`` the
         absolute position. Updates ``cache`` in place; returns (logits
         (B, V), cache)."""
+        cfg = self.cfg
         x = self.embed[token][:, None, :]
+        if cfg.rope_frac == 0.0 and cfg.n_heads:
+            x = L.add_positions(x, pos)
         for i, blk in enumerate(self.blocks):
             layer = {name: val[i] for name, val in cache.items()}
-            if self.cfg.family == "ssm":
+            if cfg.family == "ssm":
                 x = blk.decode(x, layer)
             else:
                 x = blk.decode(x, layer, pos, ring=ring)
-        return self.unembed(x[:, 0, :]), cache
+        return unembed(self, x[:, 0, :]), cache
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -1,7 +1,9 @@
 """The five decoder archs of the moe family and the head_dim-128 dense
 decoders against the reference, reduced, in fp32 on the CPU, from the
 reference's own initial parameters (convert.py): stablelm_1_6b,
-chatglm3_6b, moonshot_v1_16b_a3b, grok_1_314b, llama4_maverick_400b_a17b.
+chatglm3_6b, moonshot_v1_16b_a3b, grok_1_314b, llama4_maverick_400b_a17b;
+and the registry of the ten archs (the vlm and encdec families are
+tests/test_torch_vlm.py and tests/test_torch_encdec.py).
 
 Tolerances:
 - forward logits to atol 2e-5 and the summed aux loss to rtol 1e-5. The
@@ -26,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import FLConfig as JFLConfig
 from repro.configs import NOMAConfig as JNOMAConfig
 from repro.configs import get_config as jget_config
@@ -44,6 +47,7 @@ from repro_torch.kernels import swa
 from repro_torch.launch import serve, train
 from repro_torch.launch.serve import run_serve
 from repro_torch.models import zoo
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DecoderLM
 
 ARCHS = ["stablelm_1_6b", "chatglm3_6b", "moonshot_v1_16b_a3b",
@@ -76,19 +80,36 @@ def assert_cache_close(cache, jcache):
                                    err_msg=name, **TOL)
 
 
+EIGHT = ["smollm_135m", "hymba_1_5b", "rwkv6_7b", *ARCHS]
+
+
 def test_get_config_and_the_command_lines_take_the_eight_archs():
-    assert len(ARCH_IDS) == 8 and set(ARCHS) <= set(ARCH_IDS)
+    """The eight archs of the earlier slices stay in ``ARCH_IDS``, equal to
+    the reference's configs and taken by ``--arch``."""
+    assert set(EIGHT) <= set(ARCH_IDS)
+    for arch in EIGHT:
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+            jget_config(arch))
+        assert train.parse_args(["--arch", arch]).arch == arch
+
+
+def test_get_config_and_the_command_lines_take_the_ten_archs():
+    """``ARCH_IDS`` is the reference's ten; every config equals the
+    reference's, ``--arch`` of both command lines takes each (the train CLI
+    then refuses the vlm and encdec families, tests/test_torch_vlm.py), and
+    an unknown arch is refused."""
+    assert ARCH_IDS == list(JARCH_IDS)
     for arch in ARCH_IDS:
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
             jget_config(arch))
         assert train.parse_args(["--arch", arch]).arch == arch
-    with pytest.raises(ValueError, match="4b"):
-        get_config("paligemma_3b")
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("gemma_7b")
     with pytest.raises(SystemExit):
-        train.parse_args(["--arch", "seamless_m4t_medium"])
+        train.parse_args(["--arch", "gemma_7b"])
     saved = sys.argv
     try:
-        sys.argv = ["serve", "--arch", "seamless_m4t_medium"]
+        sys.argv = ["serve", "--arch", "gemma_7b"]
         with pytest.raises(SystemExit), \
                 contextlib.redirect_stderr(io.StringIO()):
             serve.main()
@@ -316,19 +337,24 @@ def test_train_cli_trains_a_reduced_moe_arch(tmp_path):
 
 
 @pytest.mark.parametrize("family,overrides,builds", [
-    ("vlm", dict(n_prefix_tokens=8, prefix_dim=32), False),
+    ("vlm", dict(n_prefix_tokens=8, prefix_dim=32), True),
     ("encdec", dict(n_enc_layers=2), False),
-    ("dense", dict(rope_frac=0.0), False),               # NoPE
-    ("dense", dict(n_prefix_tokens=8, prefix_dim=32), False),
+    ("dense", dict(rope_frac=0.0), True),                # NoPE
+    ("dense", dict(n_prefix_tokens=8, prefix_dim=32), True),
     # sliding_window is read by no model code of the reference
     ("dense", dict(sliding_window=4096), True),
     ("moe", dict(n_experts=4, top_k=2), True)])
 def test_decoder_builds_the_ported_families_only(family, overrides,
                                                  builds):
+    """``DecoderLM`` builds every decoder family (vlm and NoPE since the
+    vlm/encdec slice); the encdec family is ``models/encdec.py``, which
+    ``zoo`` builds instead."""
     cfg = dataclasses.replace(get_config("smollm_135m").reduced(),
                               family=family, **overrides)
     if builds:
         DecoderLM(cfg, torch.device("meta"))
     else:
-        with pytest.raises(NotImplementedError, match="item 4b"):
+        with pytest.raises(ValueError, match="models/encdec.py"):
             DecoderLM(cfg, torch.device("meta"))
+        assert isinstance(zoo.build_model(cfg, torch.device("meta")),
+                          EncDecLM)

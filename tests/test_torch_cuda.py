@@ -246,7 +246,7 @@ class TestServingKernels:
         """The fp32 kernel (CUDA cores) under the same two checks."""
         self._check_swa(b, s, h, kh, hd, w, cap, torch.float32)
 
-    @pytest.mark.parametrize("hd", [64, 128])
+    @pytest.mark.parametrize("hd", [64, 128, 256])
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("w", [63, 64, 65, 128, 4096])
     @pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129])
@@ -255,16 +255,51 @@ class TestServingKernels:
         128-query block."""
         self._check_swa(2, s, 6, 2, hd, w, 0.0, dtype)
 
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("b,s,h,kh,hd,w,prefix,cap", [
+        # head_dim 256: paligemma's 8:1 with its 256-token prefix at a
+        # quarter of its windowed prefill, 4:4, every prefix against W
+        (1, 4096, 8, 1, 256, 2048, 256, 0.0),
+        (2, 1000, 4, 4, 256, 300, 0, 0.0),
+        (2, 1000, 8, 1, 256, 300, 1, 0.0),
+        (2, 1000, 8, 1, 256, 300, 100, 0.0),
+        (1, 700, 8, 1, 256, 300, 256, 0.0),
+        (1, 700, 8, 1, 256, 300, 500, 0.0),       # prefix > W
+        (1, 700, 8, 1, 256, 300, 256, 30.0),      # softcap
+        (2, 129, 4, 2, 256, 65, 70, 0.0),         # S, W, P off the tiles
+        (1, 200, 8, 1, 256, 64, 300, 0.0),        # prefix > S
+        # the other head dims with a prefix
+        (2, 300, 4, 1, 16, 256, 8, 0.0),
+        (2, 1000, 6, 3, 64, 300, 100, 0.0),
+        (2, 1000, 16, 16, 64, 300, 0, 0.0),       # seamless's 16:16
+        (2, 1000, 6, 3, 128, 300, 100, 30.0),
+    ])
+    def test_swa_prefix(self, b, s, h, kh, hd, w, prefix, cap, dtype):
+        """The prefix-LM band (keys j < prefix seen by every query within
+        the window), under the two checks of ``test_swa``."""
+        self._check_swa(b, s, h, kh, hd, w, cap, dtype, prefix)
+
+    def test_swa_refuses_what_the_kernel_does_not_take(self):
+        """On the card a head_dim or prefix the kernel does not take
+        raises; nothing runs ``swa_plain`` instead."""
+        dev = cuda_device()
+        q = seeded((1, 64, 2, 32), 1, dev).bfloat16()
+        with pytest.raises(ValueError, match="head_dim"):
+            swa.swa(q, q[:, :, :1], q[:, :, :1], window=8)
+        q = seeded((1, 64, 2, 256), 1, dev).bfloat16()
+        with pytest.raises(ValueError, match="prefix"):
+            swa.swa(q, q[:, :, :1], q[:, :, :1], window=8, prefix=-1)
+
     @staticmethod
-    def _check_swa(b, s, h, kh, hd, w, cap, dtype):
+    def _check_swa(b, s, h, kh, hd, w, cap, dtype, prefix=0):
         dev = cuda_device()
         q = seeded((b, s, h, hd), 1, dev).to(dtype) * (8.0 if cap else 1.0)
         k = seeded((b, s, kh, hd), 2, dev).to(dtype)
         v = seeded((b, s, kh, hd), 3, dev).to(dtype)
         before = swa.swa.launches
-        out = swa.swa(q, k, v, window=w, softcap=cap)
+        out = swa.swa(q, k, v, window=w, softcap=cap, prefix=prefix)
         assert swa.swa.launches == before + 1
-        ref = swa.swa_plain(q, k, v, window=w, softcap=cap)
+        ref = swa.swa_plain(q, k, v, window=w, softcap=cap, prefix=prefix)
         assert out.dtype == dtype
         assert_swa_close(out, ref)
 
@@ -340,14 +375,15 @@ class TestServingKernels:
         assert fn.launches == before + cfg.n_layers
         assert bool(torch.isfinite(last).all())
 
-    @pytest.mark.parametrize("kernel", ["swa", "wkv6"])
+    @pytest.mark.parametrize("kernel", ["swa", "wkv6", "swa_256_prefix"])
     def test_a_call_that_needs_a_gradient_raises(self, kernel):
         dev = cuda_device()
-        if kernel == "swa":
-            q = seeded((1, 16, 2, 16), 1, dev).requires_grad_()
-            args = (q, seeded((1, 16, 1, 16), 2, dev),
-                    seeded((1, 16, 1, 16), 3, dev))
-            call = lambda: swa.swa(*args, window=4)
+        if kernel.startswith("swa"):
+            hd, prefix = (256, 5) if kernel == "swa_256_prefix" else (16, 0)
+            q = seeded((1, 16, 2, hd), 1, dev).requires_grad_()
+            args = (q, seeded((1, 16, 1, hd), 2, dev),
+                    seeded((1, 16, 1, hd), 3, dev))
+            call = lambda: swa.swa(*args, window=4, prefix=prefix)
         else:
             r = seeded((1, 1, 8, 16), 1, dev).requires_grad_()
             args = (r, r.detach(), r.detach(), -torch.ones(1, 1, 8, 16,
@@ -360,7 +396,8 @@ class TestServingKernels:
             call()
 
     @pytest.mark.parametrize("arch", ["hymba_1_5b", "rwkv6_7b",
-                                      "moonshot_v1_16b_a3b", "chatglm3_6b"])
+                                      "moonshot_v1_16b_a3b", "chatglm3_6b",
+                                      "paligemma_3b", "seamless_m4t_medium"])
     def test_run_serve_on_the_card_never_takes_the_plain_path(
             self, arch, monkeypatch):
         dev = cuda_device()
@@ -673,3 +710,57 @@ class TestMoEOnCard:
         err = float((got.cpu() - want).abs().max())
         assert err <= 1e-5 * float(want.abs().max())
         assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
+
+
+@pytest.mark.cuda
+class TestVlmEncdecOnCard:
+    """The reduced paligemma and seamless (fp32) on the card against the
+    same weights on the CPU."""
+
+    @pytest.mark.parametrize("arch", ["paligemma_3b", "seamless_m4t_medium"])
+    def test_card_equals_cpu(self, arch):
+        """The windowed prefill (S=300 past the reduced 256 window; one swa
+        launch a layer, the prefix band in paligemma's) and the full one,
+        4 decode steps from the prefill's cache, and ``run_serve``'s
+        tokens: logits and caches within 1e-4 of their max magnitude."""
+        dev = cuda_device()
+        cfg = get_config(arch).reduced()
+        models = {"cpu": zoo.init_model(cfg, seed=0, device="cpu")}
+        models[dev] = zoo.init_model(cfg, seed=0, device=dev)
+        models[dev].load_state_dict(models["cpu"].state_dict())
+        rng = np.random.default_rng(3)
+        toks = rng.integers(0, cfg.vocab_size, (2, 300))
+        extra = rng.standard_normal((2, cfg.n_prefix_tokens, cfg.prefix_dim))
+        name = "prefix" if cfg.family == "vlm" else "frames"
+        pref = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+        for w in (0, cfg.long_context_window):
+            res = {}
+            for d, m in models.items():
+                batch = {"tokens": torch.as_tensor(toks, device=d),
+                         name: torch.as_tensor(extra, dtype=torch.float32,
+                                               device=d)}
+                before = swa.swa.launches
+                last, cache = zoo.make_prefill_step(cfg, window=w)(m, batch)
+                if d != "cpu":
+                    assert swa.swa.launches == before + (
+                        cfg.n_layers if w else 0)
+                full = zoo.init_cache(cfg, 2, pref + 304, device=d)
+                for n in full:
+                    if n in ("xk", "xv"):
+                        full[n].copy_(cache[n])
+                    else:
+                        full[n][:, :, :pref + 300] = cache[n]
+                step, logits = zoo.make_serve_step(cfg), [last]
+                tok = torch.argmax(last, -1)
+                for i in range(4):
+                    tok, lg, full = step(m, full, tok, pref + 300 + i)
+                    logits.append(lg)
+                res[d] = [x.cpu() for x in (torch.stack(logits), cache["k"],
+                                            cache["v"])]
+            for a, b in zip(res[dev], res["cpu"]):
+                assert float((a - b).abs().max()) <= 1e-4 * float(
+                    b.abs().max())
+        served = {d: run_serve(cfg, batch=2, prompt_len=40, gen=6, seed=0,
+                               device=d, model=m)["tokens"]
+                  for d, m in models.items()}
+        assert (served[dev] == served["cpu"]).all()
