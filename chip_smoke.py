@@ -76,7 +76,7 @@ Phases, each fatal on failure:
      largest blend against its plain version, ``torch.mv`` and its bound;
  16. moonshot_v1_16b_a3b whole (48 layers, 28.06 B parameters, bf16):
      ``run_serve`` at B=1, a 4096-token prompt, 16 greedy tokens (window
-     0, the direct attention); ``make_prefill_step(window=8192)`` at
+     0, the chunked attention); ``make_prefill_step(window=8192)`` at
      B=1, T=16,384 (one swa launch a layer), layer 0's q, k, v caught by
      a forward hook and the kernel on them held against ``swa_plain``;
      then the config cut to 2 layers in fp32, its windowed prefill's
@@ -90,7 +90,7 @@ Phases, each fatal on failure:
      draw of the weights (the MoE aux loss in local SGD);
  20. paligemma_3b whole (18 layers, 2.51 B parameters, bf16):
      ``run_serve`` at B=1, its 256 image-prefix tokens, a 4096-token
-     prompt and 16 greedy tokens (the direct attention with the prefix-LM
+     prompt and 16 greedy tokens (the chunked attention with the prefix-LM
      mask); ``make_prefill_step(window=8192)`` at T=16,384 (256 prefix +
      16,128 text; one swa launch a layer, head_dim 256 with the prefix
      band), layer 0's q, k, v caught by a forward hook and held against
@@ -99,20 +99,35 @@ Phases, each fatal on failure:
  21. seamless_m4t_medium whole (12 + 12 layers, 0.88 B parameters):
      ``run_serve`` at B=1, 512 encoder frames, a 4096-token prompt and 16
      tokens; the windowed prefill at T=16,384 (one swa launch a decoder
-     layer; the encoder and the cross-attention are direct), the first
+     layer; the encoder and the cross-attention are chunked), the first
      swa call's inputs held against ``swa_plain``; then paligemma and
-     seamless reduced, fp32, card against CPU (as 18).
+     seamless reduced, fp32, card against CPU (as 18);
+ 22. the train step: stablelm_1_6b whole (bf16, 1,644,414,976
+     parameters): ``make_prefill_step`` (window 0: the chunked
+     running-softmax attention) at B=1, T=4096 and T=16,384, then
+     ``make_train_step(lr=1e-3, microbatches=4, remat=True)`` at B=8,
+     S=2048 for 3 steps (s a step, tokens/s, loss, grad_norm, peak GiB);
+     the chunked attention against the direct one on the card at
+     stablelm's heads, fp32 and bf16; one step of reduced stablelm,
+     moonshot (capacity_factor 8), paligemma and seamless in fp32 at
+     S=1280 (two Q and two KV blocks of the chunked attention), card
+     against CPU (loss and grad_norm rtol 1e-4, parameters
+     atol 1e-6); reduced hymba, rwkv6 and a windowed stablelm refusing
+     the step on the card (``NotImplementedError``, ROADMAP item 5).
 Phases 6a, 7, 8 (each FL path), 9 (run_serve), 10 (the T=4096 prefill),
-14, 15b, 16, 17, 20 and 21 (each serve and windowed prefill) and 19 each
-set every kernel's launch count to 0 just before and read it just after.
+14, 15b, 16, 17, 20 and 21 (each serve and windowed prefill), 19 and 22
+(each prefill and the full-width train step) each set every kernel's
+launch count to 0 just before and read it just after.
 The run ledgers go to a temporary directory (``REPRO_RUNS_DIR``), removed
 at the end. The phases run in the order 1-5, 6a, 6b, 11-13, 6, 7, 8, 14,
-15, 9, 10, 16-21.
+15, 9, 10, 16-22.
 
 With ``--profile`` it then times the stages of one more FL round and
 traces another with ``torch.profiler``, and traces one prefill and one
 decode step in each of phases 9, 10, 16, 17, 20 and 21 (naming the swa
-and wkv6 kernels' calls and device time within the prefill). It prints a ``{"kernels": [...]}``
+and wkv6 kernels' calls and device time within the prefill; in 16, 17,
+20 and 21 also the serve path's unwindowed 4096-token prefill, through
+the chunked attention), and one full-width train step in phase 22. It prints a ``{"kernels": [...]}``
 line (launches of the four FL kernels from phase 8's hungarian + joint
 path, of swa from phase 9, of wkv6 from phase 10; each entry also has
 the launches of the budget FL path, of the multi-cell budget FL path, of
@@ -121,7 +136,8 @@ the train CLI's path, ``launches_train``, of the predictor FL path,
 of the windowed prefills of moonshot and chatglm3,
 ``launches_moonshot_prefill`` and ``launches_chatglm3_prefill``, and of
 paligemma's and seamless's, ``launches_paligemma_prefill`` and
-``launches_seamless_prefill``),
+``launches_seamless_prefill``, and of the full-width train step,
+``launches_train_step``: 0 for every kernel, none is on its path),
 the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details go to
@@ -2292,7 +2308,7 @@ def model_inputs(torch, dev, cfg, t: int, seed: int, batch: int = 1) -> dict:
 
 def serve_whole(torch, dev, model, cfg) -> dict:
     """``run_serve`` at B=1, a 4096-token prompt and 16 greedy tokens
-    (window 0: the direct attention), launch counts set to 0 just before
+    (window 0: the chunked attention), launch counts set to 0 just before
     and read just after."""
     from repro_torch import kernels
     from repro_torch.launch.serve import run_serve
@@ -2454,7 +2470,9 @@ def phase_decoder(torch, dev, arch, *, windowed: bool,
 
 
 def profile_decoder(torch, dev, model, cfg, windowed: bool) -> dict:
-    """One prefill and one decode step under ``torch.profiler``."""
+    """One prefill and one decode step under ``torch.profiler``; with
+    ``windowed``, also the serve path's unwindowed prefill of 4096 text
+    tokens (the chunked attention)."""
     from repro_torch.models import zoo
     t = LONG_T if windowed else SERVE_PROMPT
     prefill = zoo.make_prefill_step(
@@ -2463,6 +2481,12 @@ def profile_decoder(torch, dev, model, cfg, windowed: bool) -> dict:
     toks = batch["tokens"]
     out = dict(prefill_T=t, prefill=profile_call(
         torch, lambda: prefill(model, batch), names=("swa",)))
+    if windowed:
+        full = zoo.make_prefill_step(cfg)
+        pref = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+        short = model_inputs(torch, dev, cfg, pref + SERVE_PROMPT, 1)
+        out["prefill_unwindowed"] = profile_call(
+            torch, lambda: full(model, short))
     cache = zoo.init_cache(cfg, 1, SERVE_PROMPT + SERVE_GEN, device=dev)
     step = zoo.make_serve_step(cfg)
     step(model, cache, toks[:, 0], 0)
@@ -2601,6 +2625,231 @@ def phase_moe_fl(torch, dev):
     return counts
 
 
+TRAIN_ARCH = "stablelm_1_6b"
+TRAIN_B, TRAIN_S, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 4, 3
+TRAIN_PARAMS = 1_644_414_976
+PREFILL_TS = (4096, LONG_T)
+REDUCED_TRAIN = {"stablelm_1_6b": {}, "paligemma_3b": {},
+                 "seamless_m4t_medium": {},
+                 "moonshot_v1_16b_a3b": {"capacity_factor": 8.0}}
+REDUCED_TRAIN_S, REDUCED_TRAIN_LR = 1280, 1e-2
+
+
+def train_batch(torch, dev, cfg, b: int, s: int, seed: int) -> dict:
+    """``model_inputs`` of s + 1 positions cut into tokens and next-token
+    labels (a few -1, ignored), with a non-uniform ``weight``."""
+    import numpy as np
+    pref = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+    batch = model_inputs(torch, dev, cfg, pref + s + 1, seed, batch=b)
+    toks = batch.pop("tokens")
+    labels = toks[:, 1:].clone()
+    labels[:, ::7] = -1
+    w = np.linspace(0.5, 2.0, b)
+    return batch | {"tokens": toks[:, :-1], "labels": labels,
+                    "weight": torch.as_tensor(w, dtype=torch.float32,
+                                              device=dev)}
+
+
+def attention_on_card(torch, dev) -> dict:
+    """The chunked path against ``direct_attention`` on the card at
+    stablelm's (1, 4096, 32, 64) heads, causal: fp32 within 2e-5, bf16
+    within one bf16 rounding of the fp32 direct result."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((1, 4096, 32, 64), generator=gen, device=dev)
+               for _ in range(3))
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (x.to(dt) for x in (q, k, v))
+        got = layers.chunked_attention(qd, kd, vd, cfg)
+        want = layers.direct_attention(qd.float(), kd.float(), vd.float(),
+                                       cfg)
+        err = float((got.float() - want).abs().max())
+        tol = 2e-5 if dt == torch.float32 else 2.0 ** -8 * float(
+            want.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"chunked attention {dt} on the card: max "
+                                 f"abs err {err} > {tol} vs direct")
+        out[str(dt).split(".")[-1]] = dict(max_abs_err=err, tolerance=tol)
+    return out
+
+
+def long_prefills(torch, dev, model, cfg) -> dict:
+    """``make_prefill_step(cfg)`` (window 0: the chunked attention) at B=1
+    and each of PREFILL_TS, launch counts set to 0 just before and read
+    just after (no kernel on this path): finite logits and cache, peak
+    GiB, a first and a timed second run."""
+    from repro_torch import kernels
+    from repro_torch.models import zoo
+    prefill = zoo.make_prefill_step(cfg)
+    out = {}
+    for t in PREFILL_TS:
+        batch = model_inputs(torch, dev, cfg, t, 4)
+        release(torch)
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        last, cache = prefill(model, batch)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if any(counts.values()) or not (
+                bool(torch.isfinite(last).all())
+                and all(bool(torch.isfinite(cache[n]).all())
+                        for n in ("k", "v"))):
+            raise AssertionError(f"{cfg.name} prefill T={t}: launches "
+                                 f"{counts}, or non-finite logits or cache")
+        del last, cache
+        t0 = time.perf_counter()
+        last, cache = prefill(model, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        del last, cache
+        out[f"T={t}"] = dict(first_ms=first_ms, ms=ms, peak_mem_gib=peak,
+                             launches=counts)
+        log(f"{cfg.name} unwindowed prefill B=1, T={t} (chunked "
+            f"attention): {ms:.1f} ms (first {first_ms:.1f}), peak "
+            f"{peak:.2f} GiB")
+    return out
+
+
+def full_width_train(torch, dev, model, cfg, profile: bool) -> tuple:
+    """``make_train_step(lr=1e-3, microbatches=4, remat=True)`` at B=8,
+    S=2048 for TRAIN_STEPS steps, launch counts set to 0 just before and
+    read just after: finite loss, grad_norm > 0, the weights moved, peak
+    under the card's 80 GB."""
+    from repro_torch import kernels
+    from repro_torch.models import zoo
+    step = zoo.make_train_step(cfg, lr=1e-3, microbatches=TRAIN_MICRO,
+                               remat=True)
+    batch = train_batch(torch, dev, cfg, TRAIN_B, TRAIN_S, 6)
+    before = model.embed.detach()[:64].float().clone()
+    release(torch)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step(model, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({n: float(v) for n, v in m.items()})
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    moved = float((model.embed.detach()[:64].float() - before).abs().max())
+    if not (all(math.isfinite(x["loss"]) and x["grad_norm"] > 0
+                and math.isfinite(x["grad_norm"]) for x in metrics)
+            and moved > 0 and peak < 80 and not any(counts.values())):
+        raise AssertionError(f"{cfg.name} train step: {metrics}, moved "
+                             f"{moved}, peak {peak} GiB, launches {counts}")
+    s_step = statistics.median(secs[1:])
+    rec = dict(batch=TRAIN_B, seq=TRAIN_S, microbatches=TRAIN_MICRO,
+               remat=True, lr=1e-3, steps=TRAIN_STEPS, step_s=secs,
+               s_per_step=s_step,
+               tokens_per_s=TRAIN_B * TRAIN_S / s_step,
+               loss=[x["loss"] for x in metrics],
+               grad_norm=[x["grad_norm"] for x in metrics],
+               peak_gib=peak, launches=counts)
+    if profile:
+        rec["profile"] = profile_call(torch, lambda: step(model, batch))
+    log(f"{cfg.name} train step at full width (B={TRAIN_B}, S={TRAIN_S}, "
+        f"{TRAIN_MICRO} microbatches, remat): s_per_step {s_step:.3f}, "
+        f"tokens_per_s {rec['tokens_per_s']:.0f}, loss {rec['loss']}, "
+        f"grad_norm {rec['grad_norm']}, peak_gib {peak:.2f}")
+    return rec, counts
+
+
+def reduced_train_card_vs_cpu(torch, dev, arch, over: dict) -> dict:
+    """One ``make_train_step`` step of ``arch`` reduced, fp32, 2
+    microbatches with remat, at S=1280 (the chunked attention in 640-row
+    blocks, 644 for paligemma's 8-token prefix: the running softmax
+    crosses KV blocks and the backward recomputes several Q blocks),
+    on the card and on the CPU from the same weights: loss and grad_norm
+    rtol 1e-4, every updated parameter atol 1e-6 (the CPU tests')."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    models = {"cpu": zoo.init_model(cfg, seed=0, device="cpu")}
+    models[dev] = zoo.init_model(cfg, seed=0, device=dev)
+    models[dev].load_state_dict(models["cpu"].state_dict())
+    step = zoo.make_train_step(cfg, lr=REDUCED_TRAIN_LR, microbatches=2,
+                               remat=True)
+    metrics = {}
+    for d, m in models.items():
+        batch = train_batch(torch, "cpu", cfg, 4, REDUCED_TRAIN_S, 8)
+        metrics[d] = {n: float(v) for n, v in step(
+            m, {n: x.to(d) for n, x in batch.items()}).items()}
+    err = max(float((p.detach().cpu() - q.detach()).abs().max())
+              for p, q in zip(models[dev].parameters(),
+                              models["cpu"].parameters()))
+    card, cpu = metrics[dev], metrics["cpu"]
+    if not (err <= 1e-6 and all(math.isclose(card[n], cpu[n], rel_tol=1e-4)
+                                for n in cpu)):
+        raise AssertionError(f"{arch} reduced train step: card {card} vs "
+                             f"CPU {cpu}, parameters {err} apart")
+    return dict(card=card, cpu=cpu, params_max_abs_err=err,
+                tolerance=dict(loss_grad_norm_rtol=1e-4, params_atol=1e-6))
+
+
+def train_refusals(torch, dev) -> dict:
+    """On the card a gradient through swa or wkv6 raises: reduced hymba
+    (its window), rwkv6 (wkv6) and stablelm at window 8 (swa) each refuse
+    ``make_train_step`` with the NotImplementedError naming item 5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    out = {}
+    for arch, window in (("hymba_1_5b", 0), ("rwkv6_7b", 0),
+                         ("stablelm_1_6b", 8)):
+        cfg = get_config(arch).reduced()
+        model = zoo.init_model(cfg, seed=0, device=dev)
+        step = zoo.make_train_step(cfg, window=window)
+        try:
+            step(model, train_batch(torch, dev, cfg, 2, 32, 9))
+        except NotImplementedError as exc:
+            if "item 5" not in str(exc):
+                raise
+            out[f"{arch} window {window}"] = str(exc).split(":")[0]
+        else:
+            raise AssertionError(f"{arch} window {window}: the train step "
+                                 f"ran on the card through a forward-only "
+                                 f"kernel")
+    return out
+
+
+def phase_train_step(torch, dev, profile: bool = False) -> dict:
+    """22. The train step: stablelm_1_6b whole in bf16, its unwindowed
+    prefills (``long_prefills``) and the full-width step
+    (``full_width_train``); the chunked attention against the direct one
+    on the card; four reduced families card against CPU; the refusals.
+    Returns the full-width step's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    cfg = get_config(TRAIN_ARCH)
+    model = zoo.init_model(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"{TRAIN_ARCH} has {n_params} parameters")
+    rec = dict(arch=TRAIN_ARCH, n_params=n_params, dtype=cfg.dtype,
+               prefill=long_prefills(torch, dev, model, cfg))
+    rec["train"], counts = full_width_train(torch, dev, model, cfg, profile)
+    del model
+    release(torch)
+    rec["attention_on_card"] = attention_on_card(torch, dev)
+    rec["reduced_card_vs_cpu"] = {
+        arch: reduced_train_card_vs_cpu(torch, dev, arch, over)
+        for arch, over in REDUCED_TRAIN.items()}
+    rec["refusals"] = train_refusals(torch, dev)
+    RESULT["train_step"] = rec
+    log(f"train step phase: chunked attention on the card "
+        f"{rec['attention_on_card']}; reduced card == CPU "
+        f"{rec['reduced_card_vs_cpu']}; refusals {rec['refusals']}")
+    release(torch)
+    return counts
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2709,6 +2958,8 @@ def run_phases(torch) -> int:
            for arch in ("paligemma_3b", "seamless_m4t_medium")}
     RESULT["reduced_vlm_encdec"] = out
     log(f"paligemma and seamless reduced, fp32, card == CPU: {out}")
+    release(torch)
+    train_step_counts = phase_train_step(torch, dev, profile)
 
     fl_path = f"FLServer smollm-135M, hungarian + joint, {FL_ROUNDS} rounds"
     paths = {
@@ -2739,7 +2990,8 @@ def run_phases(torch) -> int:
          "launches_moonshot_prefill": moonshot_counts[name],
          "launches_chatglm3_prefill": chatglm_counts[name],
          "launches_paligemma_prefill": pali_counts[name],
-         "launches_seamless_prefill": seamless_counts[name], **kinfo[name]}
+         "launches_seamless_prefill": seamless_counts[name],
+         "launches_train_step": train_step_counts[name], **kinfo[name]}
         for name, (src, rep, counts, path) in paths.items()]}
     RESULT.update(card=smi, kernels=line["kernels"],
                   script_s=time.perf_counter() - t_start)

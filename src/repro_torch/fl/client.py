@@ -32,7 +32,7 @@ class LocalTrainer:
         loss (a 0-dim tensor, no host sync)."""
         tokens = tokens.long()
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        logits, aux = zoo.forward(self.cfg, self.work, inputs)
+        logits, aux = zoo.forward(self.cfg, self.work, inputs, remat=False)
         loss = zoo.token_loss(self.cfg, logits, labels, aux=aux)
         grads = torch.autograd.grad(loss, params)
         self.opt.step(params, grads, state)

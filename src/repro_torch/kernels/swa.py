@@ -28,7 +28,8 @@ dtype alone:
 ``attention_plain`` is the plain PyTorch version: dense masked attention
 in fp32 (the reference's ``_direct_attention``), which ``swa_plain`` runs
 with a window and ``layers.direct_attention`` runs for every other
-attention of the port. The wrapper takes the plain version only for CPU
+attention of the port up to 256 x 256 (query, key) pairs (above, the
+chunked ``layers.chunked_attention``). The wrapper takes the plain version only for CPU
 tensors; for CUDA tensors it launches a kernel or raises.
 """
 from __future__ import annotations

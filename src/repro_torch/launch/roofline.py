@@ -4,7 +4,7 @@ Counterpart of ``RoofPoint`` and ``kernel_roof_point`` in
 ``src/repro/launch/roofline.py``, with the H100's roofs in place of the
 TPU's. The reference's HLO half (``collective_stats``,
 ``build_roofline``, ``cost_analysis_dict``) reads XLA's compiled HLO and
-serves only its dry run; it is ported with that (ROADMAP queue A item 4c).
+serves only its dry run; it is ported with that (ROADMAP queue A item 6).
 
 The peaks are NVIDIA's data sheet figures for the SXM part at its 700 W
 limit (dense rates, no sparsity). ``chip_smoke.py`` takes its bounds from

@@ -20,7 +20,9 @@ self-attention is causal, and with a ``window`` > 0 goes through
 decoder layer's self k, v and pos and its cross ``xk``, ``xv`` (the
 memory's projections, fixed for the whole decode). The speech frontend is
 a stub, as in the reference: ``frames`` are (B, P, prefix_dim)
-embeddings.
+embeddings. ``forward(remat=True)`` runs each encoder and decoder layer
+as a ``torch.utils.checkpoint`` region under autograd, the reference's
+``jax.checkpoint(body)`` of both layer scans.
 """
 from __future__ import annotations
 
@@ -151,24 +153,25 @@ class EncDecLM(nn.Module):
         self.lm_head = nn.Parameter(torch.empty(
             d, cfg.padded_vocab, dtype=dtype, device=device))
 
-    def encode(self, frames):
+    def encode(self, frames, *, remat: bool = True):
         """frames (B, P, prefix_dim) -> memory (B, P, D)."""
         cfg = self.cfg
         x = L.add_positions(frames.to(self.frontend_proj.dtype)
                             @ self.frontend_proj)
         for blk in self.enc_blocks:
-            x = blk(x)
+            x = L.remat_call(blk, x, remat=remat)
         return L.rms_norm(x, self.enc_norm, cfg.norm_eps)
 
     def forward(self, frames, tokens, *, window: int = 0,
                 collect_cache: bool = False, last_only: bool = False,
-                with_aux: bool = False):
+                with_aux: bool = False, remat: bool = True):
         """frames (B, P, prefix_dim), tokens (B, S) -> logits (B, S,
         padded_vocab) (``last_only``: (B, 1, V)) [, the stacked cache: k,
         v, pos (S) and xk, xv (P)] [, aux 0.0]. ``window`` > 0 is
-        sliding-window self-attention in the decoder."""
+        sliding-window self-attention in the decoder; ``remat`` recomputes
+        each layer in the backward (a no-op under ``torch.no_grad()``)."""
         cfg = self.cfg
-        memory = self.encode(frames)
+        memory = self.encode(frames, remat=remat)
         x = L.add_positions(self.embed[tokens])
         caches: dict = {}
 
@@ -178,7 +181,8 @@ class EncDecLM(nn.Module):
             caches[name][i] = val
 
         for i, blk in enumerate(self.dec_blocks):
-            x, (k, v), (mk, mv) = blk(x, memory, window=window)
+            x, (k, v), (mk, mv) = L.remat_call(blk, x, memory,
+                                               window=window, remat=remat)
             if collect_cache:
                 for name, val in (("k", k), ("v", v), ("xk", mk),
                                   ("xv", mv)):

@@ -8,6 +8,13 @@ sequence axis (12 passes at S = 4096), not token by token: the reference
 runs it as an XLA ``associative_scan``, not in a Pallas kernel, so it stays
 plain PyTorch. The two trees sum in another order, which moves the result
 by fp32 rounding only.
+
+The scan has two forms of the same passes in the same order, so their
+outputs are bitwise equal. Serving (no autograd) overwrites ``a`` and
+``b`` in place: hymba's (2, 4096, 1600, 16) fp32 coefficients make a
+copy a pass costly. Under autograd, with an input that needs a gradient,
+each pass builds new tensors from the untouched head and the combined
+tail (``torch.cat``), so autograd can go back through it.
 """
 from __future__ import annotations
 
@@ -60,12 +67,15 @@ def _ssm_coeffs(p: SSM, x):
 def _doubling_scan(a, b):
     """Inclusive scan of h_t = a_t h_{t-1} + b_t over axis 1 (h_{-1} = 0)
     by Hillis-Steele doubling: pass j combines each element with the one
-    2^j steps back. Overwrites ``a`` and ``b``; returns ``b`` = h."""
+    2^j steps back, (a2, b2) <- (a2 * a1, a2 * b1 + b2). Returns h. Under
+    autograd (an input needs a gradient) the passes build new tensors;
+    otherwise they overwrite ``a`` and ``b`` and h is ``b``."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _doubling_scan_autograd(a, b)
     s = a.shape[1]
     off = 1
     while off < s:
         last = 2 * off >= s
-        # (a2, b2) <- (a2 * a1, a2 * b1 + b2) with (a1, b1) off steps back;
         # the right side is formed before either tensor is overwritten
         tmp = a[:, off:] * b[:, :-off]
         b[:, off:] += tmp
@@ -74,6 +84,20 @@ def _doubling_scan(a, b):
             tmp = a[:, off:] * a[:, :-off]
             a[:, off:] = tmp
             del tmp
+        off *= 2
+    return b
+
+
+def _doubling_scan_autograd(a, b):
+    """``_doubling_scan``'s passes out of place: the head ``[:, :off]``
+    stays, the tail is combined into a new tensor."""
+    s = a.shape[1]
+    off = 1
+    while off < s:
+        b = torch.cat([b[:, :off], b[:, off:] + a[:, off:] * b[:, :-off]],
+                      dim=1)
+        if 2 * off < s:
+            a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
         off *= 2
     return b
 

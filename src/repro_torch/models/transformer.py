@@ -31,6 +31,11 @@ hybrid family takes ``cfg.long_context_window`` when the window is 0. The
 decode applies the window only with a ring cache (``ring=True``), as the
 reference does: on a linear cache every cached position is attended.
 
+``forward(remat=True)`` runs each layer as a ``torch.utils.checkpoint``
+region under autograd (``layers.remat_call``), the reference's
+``jax.checkpoint(body)`` of the layer scan: the backward keeps only each
+layer's input and recomputes the rest.
+
 ``cfg.sliding_window`` is read by no model code of the reference, so the
 port builds a config that sets it and ignores it too.
 """
@@ -234,14 +239,16 @@ class DecoderLM(nn.Module):
 
     def forward(self, tokens, prefix=None, *, window: int = 0,
                 collect_cache: bool = False, last_only: bool = False,
-                with_aux: bool = False):
+                with_aux: bool = False, remat: bool = True):
         """tokens (B, S) int [+ prefix (B, P, prefix_dim) of a vlm config]
         -> logits (B, P + S, padded_vocab) (``last_only``: (B, 1, V)); with
         ``collect_cache`` also the stacked per-layer cache (k, v post-RoPE
         and pos over the P + S positions; ssm_h; or the RWKV states), with
         ``with_aux`` the layers' summed MoE aux loss (0.0 without experts):
         logits[, cache][, aux]. ``window`` > 0 is sliding-window attention;
-        the hybrid family takes ``cfg.long_context_window`` for 0."""
+        the hybrid family takes ``cfg.long_context_window`` for 0.
+        ``remat`` recomputes each layer in the backward (a no-op under
+        ``torch.no_grad()``)."""
         cfg = self.cfg
         x, prefix_len = self.embed_inputs(tokens, prefix)
         b, s = x.shape[:2]
@@ -256,7 +263,9 @@ class DecoderLM(nn.Module):
 
         if cfg.family == "ssm":
             for i, blk in enumerate(self.blocks):
-                x, st = blk(x, _init_seq_states(cfg, b, x.dtype, x.device))
+                x, st = L.remat_call(
+                    blk, x, _init_seq_states(cfg, b, x.dtype, x.device),
+                    remat=remat)
                 if collect_cache:
                     for name, val in st.items():
                         put(name, i, val)
@@ -267,8 +276,9 @@ class DecoderLM(nn.Module):
             cos, sin = L.rope_angles(positions, _rope_dim(cfg),
                                      cfg.rope_theta)
             for i, blk in enumerate(self.blocks):
-                x, layer_aux, (k, v), st = blk(x, cos, sin, window=window,
-                                               prefix_len=prefix_len)
+                x, layer_aux, (k, v), st = L.remat_call(
+                    blk, x, cos, sin, window=window, prefix_len=prefix_len,
+                    remat=remat)
                 if layer_aux is not None:
                     aux = aux + layer_aux
                 if collect_cache:

@@ -1,4 +1,5 @@
-"""Model dispatch: ``init_model``, ``forward``, ``token_loss`` and the
+"""Model dispatch: ``init_model``, ``forward``, ``token_loss``, the train
+step builder ``make_train_step`` (with ``effective_microbatches``) and the
 serving step builders ``make_prefill_step``, ``make_serve_step`` and
 ``init_cache``.
 
@@ -18,8 +19,17 @@ RWKV bonus ``u``, ones for the norms, and the constants the reference sets
 so its numbers differ from the reference's ``jax.random`` draws by design;
 the tests load the reference's parameters through convert.py instead.
 
-The step builders are forward-only and run under ``torch.no_grad()``; the
-serving caches are written in place.
+``make_train_step`` returns a step that takes the gradient of the token
+loss over ``microbatches`` contiguous slices of the batch, sums them in
+``accum_dtype``, updates the module's parameters in place by an fp32 SGD
+step cast back to each parameter's dtype, and returns the loss and the
+gradient norm as 0-dim tensors (no host read). Nothing in it falls back:
+on the card a gradient through swa or wkv6 (the hybrid and ssm families,
+or a dense or moe model with a window) raises ``build.refuse_grad``'s
+``NotImplementedError`` until those kernels have a backward. The
+reference's sharding arguments (``param_pspecs``, ``batch_dim_spec``,
+``act_model_shard``) are not taken. The serving step builders run under
+``torch.no_grad()``; the serving caches are written in place.
 """
 from __future__ import annotations
 
@@ -121,14 +131,80 @@ def _run(cfg: ModelConfig, model, batch: dict, **kw):
     return model(batch["tokens"], batch.get("prefix"), **kw)
 
 
-def forward(cfg: ModelConfig, model, batch):
+def forward(cfg: ModelConfig, model, batch, *, remat: bool = True,
+            window: int = 0):
     """Returns (logits, aux): aux is the layers' summed MoE load-balance
     loss, 0.0 for a model without experts. ``batch`` is the tokens (B, S)
     or the reference's batch dict (``tokens`` and ``prefix`` or
-    ``frames``); a vlm's logits cover the prefix and the text."""
+    ``frames``); a vlm's logits cover the prefix and the text. ``remat``
+    recomputes each layer in the backward (a no-op under
+    ``torch.no_grad()``); ``window`` > 0 is sliding-window attention (the
+    hybrid family takes ``cfg.long_context_window`` for 0)."""
     if not isinstance(batch, dict):
         batch = {"tokens": batch}
-    return _run(cfg, model, batch, with_aux=True)
+    return _run(cfg, model, batch, with_aux=True, remat=remat, window=window)
+
+
+def effective_microbatches(global_batch: int, micro: int,
+                           batch_shards: int) -> int:
+    """Largest microbatch count <= ``micro`` such that each microbatch's
+    leading dim still divides evenly over ``batch_shards``."""
+    micro = max(1, min(micro, global_batch // max(batch_shards, 1)))
+    while micro > 1 and (global_batch % micro != 0
+                         or (global_batch // micro) % batch_shards != 0):
+        micro -= 1
+    return micro
+
+
+def make_train_step(cfg: ModelConfig, *, lr: float = 1e-3,
+                    microbatches: int = 1, window: int = 0,
+                    remat: bool = True, accum_dtype=torch.float32):
+    """Returns step(model, batch) -> {"loss", "grad_norm"} (0-dim fp32
+    tensors). ``batch`` holds ``tokens`` and ``labels`` (B, S) (-1 =
+    ignore), ``weight`` (B,) per-example weights, and ``prefix`` (vlm) or
+    ``frames`` (encdec). With ``microbatches`` > 1 the leading dim (which
+    it must divide) is cut into contiguous slices: their gradients are
+    summed in ``accum_dtype`` and divided by ``microbatches``, the loss is
+    their mean. The step writes p <- (p.float() - lr * g.float()) in p's
+    dtype into every parameter of ``model``."""
+
+    def loss_fn(model, mb):
+        logits, aux = forward(cfg, model, mb, remat=remat, window=window)
+        return token_loss(cfg, logits, mb["labels"], mb.get("weight"), aux)
+
+    def step(model, batch: dict):
+        params = list(model.parameters())
+        with torch.enable_grad():
+            if microbatches == 1:
+                loss = loss_fn(model, batch)
+                grads = torch.autograd.grad(loss, params)
+                loss = loss.detach()
+            else:
+                b = batch["tokens"].shape[0]
+                if b % microbatches:
+                    raise ValueError(f"a batch of {b} does not split into "
+                                     f"{microbatches} microbatches")
+                n = b // microbatches
+                grads = [torch.zeros(p.shape, dtype=accum_dtype,
+                                     device=p.device) for p in params]
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=params[0].device)
+                for i in range(microbatches):
+                    mb = {name: val[i * n:(i + 1) * n]
+                          for name, val in batch.items()}
+                    lm = loss_fn(model, mb)
+                    for acc, g in zip(grads, torch.autograd.grad(lm, params)):
+                        acc.add_(g.to(accum_dtype))
+                    loss = loss + lm.detach()
+                loss = loss / microbatches
+                grads = [g / microbatches for g in grads]
+        with torch.no_grad():
+            for p, g in zip(params, grads):
+                p.copy_((p.float() - lr * g.float()).to(p.dtype))
+            gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        return {"loss": loss, "grad_norm": gnorm}
+
+    return step
 
 
 def make_prefill_step(cfg: ModelConfig, *, window: int = 0):

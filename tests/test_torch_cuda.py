@@ -5,10 +5,13 @@ runs on a GPU host without the reference package's dependencies:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
 from repro_torch.configs import FLConfig, NOMAConfig
 from repro_torch.core.engine import WirelessEngine
 from repro_torch.fl.aggregate import aggregate_deltas
@@ -764,3 +767,85 @@ class TestVlmEncdecOnCard:
                                device=d, model=m)["tokens"]
                   for d, m in models.items()}
         assert (served[dev] == served["cpu"]).all()
+
+
+@pytest.mark.cuda
+class TestTrainOnCard:
+    """The chunked attention and the train step on the card: the chunked
+    path against ``direct_attention`` at a shape both fit, the step of a
+    reduced dense model against the CPU, and the refusals of the families
+    whose gradient would pass through a forward-only kernel."""
+
+    @pytest.mark.parametrize("causal,window,prefix,softcap",
+                             [(True, 0, 0, 0.0), (True, 0, 100, 30.0),
+                              (False, 0, 0, 0.0), (False, 64, 0, 30.0)])
+    def test_chunked_attention_matches_direct(self, causal, window, prefix,
+                                              softcap):
+        """(2, 640, 8, 2, 64) fp32 in 128-wide blocks: the output within
+        2e-5 and the gradients of q, k, v of autograd through the direct
+        path within rtol 1e-4 / atol 1e-6 of max(1, the largest gradient),
+        the CPU test's tolerance (tests/test_torch_attention.py)."""
+        from repro_torch.models import layers
+        dev = cuda_device()
+        cfg = dataclasses.replace(get_config("stablelm_1_6b").reduced(),
+                                  n_heads=8, n_kv_heads=2, head_dim=64,
+                                  logit_softcap=softcap)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        shapes = [(2, 640, 8, 64), (2, 640, 2, 64), (2, 640, 2, 64)]
+        arrays = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        w = torch.randn(shapes[0], generator=gen, device=dev)
+        kw = dict(causal=causal, window=window, prefix_len=prefix)
+
+        def run(fn):
+            t = [a.clone().requires_grad_() for a in arrays]
+            out = fn(*t, cfg, **kw)
+            return out, torch.autograd.grad((out * w).sum(), t)
+
+        got, g_got = run(lambda *a, **k: layers.chunked_attention(
+            *a, q_chunk=128, kv_chunk=128, **k))
+        want, g_want = run(layers.direct_attention)
+        assert float((got - want).abs().max()) <= 2e-5
+        for g, r in zip(g_got, g_want):
+            torch.testing.assert_close(
+                g, r, rtol=1e-4, atol=1e-6 * max(1.0, float(r.abs().max())))
+
+    def test_reduced_train_step_equals_the_cpu(self):
+        """One step of reduced stablelm (fp32, 2 microbatches, remat) at
+        S=300, card against CPU from the same weights: loss and grad_norm
+        rtol 1e-4, parameters atol 1e-6; no kernel launched."""
+        dev = cuda_device()
+        cfg = get_config("stablelm_1_6b").reduced()
+        models = {"cpu": zoo.init_model(cfg, seed=0, device="cpu")}
+        models[dev] = zoo.init_model(cfg, seed=0, device=dev)
+        models[dev].load_state_dict(models["cpu"].state_dict())
+        rng = np.random.default_rng(2)
+        toks = rng.integers(0, cfg.vocab_size, (4, 301))
+        step = zoo.make_train_step(cfg, lr=1e-2, microbatches=2)
+        out = {}
+        for d, m in models.items():
+            batch = {"tokens": torch.as_tensor(toks[:, :-1], device=d),
+                     "labels": torch.as_tensor(toks[:, 1:], device=d),
+                     "weight": torch.linspace(0.5, 2.0, 4, device=d)}
+            before = dict(kernels.launch_counts())
+            out[d] = {n: float(v) for n, v in step(m, batch).items()}
+            assert kernels.launch_counts() == before
+        for n in ("loss", "grad_norm"):
+            assert out[dev][n] == pytest.approx(out["cpu"][n], rel=1e-4)
+        for p, q in zip(models[dev].parameters(),
+                        models["cpu"].parameters()):
+            assert float((p.detach().cpu() - q.detach()).abs().max()) <= 1e-6
+
+    @pytest.mark.parametrize("arch,window", [("hymba_1_5b", 0),
+                                             ("rwkv6_7b", 0),
+                                             ("stablelm_1_6b", 8)])
+    def test_train_step_refuses_forward_only_kernels(self, arch, window):
+        """hymba (swa at its window), rwkv6 (wkv6) and a windowed dense
+        model: the step raises the NotImplementedError naming item 5, and
+        takes no plain version on the card."""
+        dev = cuda_device()
+        cfg = get_config(arch).reduced()
+        model = zoo.init_model(cfg, seed=0, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (2, 33), device=dev)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        with pytest.raises(NotImplementedError, match="item 5"):
+            zoo.make_train_step(cfg, window=window)(model, batch)
