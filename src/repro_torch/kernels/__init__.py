@@ -2,7 +2,9 @@
 
 Each wrapper carries a plain int ``launches`` that it increments where it
 launches its kernel, and nowhere else; ``launch_counts`` reads them and
-``reset_launch_counts`` sets them to 0.
+``reset_launch_counts`` sets them to 0. ``swa_bwd`` and ``wkv6_bwd`` are
+the backward kernels that autograd reaches through ``swa`` and ``wkv6``
+on the card.
 """
 from repro_torch.kernels import backend as _backend
 from repro_torch.kernels import fedagg as _fedagg
@@ -16,7 +18,9 @@ WRAPPERS = {"probe_kernel": _backend.probe_kernel,
             "fedagg": _fedagg.fedagg,
             "planner": _planner.planner_tables,
             "swa": _swa.swa,
-            "wkv6": _wkv6.wkv6}
+            "wkv6": _wkv6.wkv6,
+            "swa_bwd": _swa.swa_bwd,
+            "wkv6_bwd": _wkv6.wkv6_bwd}
 
 
 def launch_counts() -> dict:

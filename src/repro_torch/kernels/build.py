@@ -9,7 +9,9 @@ hash of the sources and flags, so an edited source is never served stale.
 
 Nothing is built when this module is imported: ``load()`` builds at first
 use, so the CPU tests import every kernel module without ``nvcc``. A
-missing ``nvcc`` or a failed build raises; nothing falls back.
+missing ``nvcc`` or a failed build raises; nothing falls back, in the
+forward kernels or in the backward ones (``swa_bwd.cu``, ``wkv6_bwd.cu``)
+that autograd reaches through the swa and wkv6 wrappers.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception.
@@ -25,8 +27,6 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-
-import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -54,6 +54,9 @@ SIGNATURES = {
                   _I, _P),
     "repro_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _I, _I, _I, _I, _P),
+    "repro_swa_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _F, _F, _I, _P),
+    "repro_wkv6_bwd": (_P,) * 16 + (_I,) * 7 + (_P,),
 }
 
 
@@ -151,17 +154,6 @@ def aligned(t):
     and cp.async need."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def refuse_grad(what: str, *tensors) -> None:
-    """The kernels are forward-only: a call that would need a gradient
-    raises instead of quietly taking the plain version."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what}: the CUDA kernel has no backward; training through it "
-            f"on the card (the hybrid and ssm families, or a windowed dense "
-            f"or moe model) needs backward kernels (ROADMAP queue A item "
-            f"5). Call it under torch.no_grad().")
 
 
 def check(code: int, what: str) -> None:

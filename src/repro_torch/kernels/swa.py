@@ -31,6 +31,21 @@ with a window and ``layers.direct_attention`` runs for every other
 attention of the port up to 256 x 256 (query, key) pairs (above, the
 chunked ``layers.chunked_attention``). The wrapper takes the plain version only for CPU
 tensors; for CUDA tensors it launches a kernel or raises.
+
+The backward. Where autograd needs a gradient of a CUDA input, ``swa``
+applies ``_SwaGrad``: its forward is the kernel above, it saves q, k, v,
+and its backward is ``swa_bwd``, the hand-written CUDA kernels of
+``csrc/swa_bwd.cu`` (fp32 on the CUDA cores, two launches, no atomics):
+one walk per query tile recomputes the row's lse, O and D = dO . O and
+accumulates dq, another per key tile accumulates dk and dv over the
+group's query heads. They replace no TPU kernel: the reference takes this
+gradient by JAX's autodiff of ``layers.flash_attention``
+(src/repro/models/layers.py:214). Bound on the H100: 10 hd operations a
+pair of the band (five products of hd) against one read of q, k, v,
+dout and one write of dq, dk, dv; the operations bound it, at 989
+TFLOP/s for bf16 inputs. ``swa_bwd_plain`` is its plain version, the same
+algorithm in fp32. Under ``torch.no_grad()``, or when no input needs a
+gradient, the forward launches exactly as before and saves nothing.
 """
 from __future__ import annotations
 
@@ -99,28 +114,43 @@ def _check(q, k, v, window, prefix):
         raise ValueError(f"swa takes prefix >= 0, got {prefix}")
 
 
-def swa(q, k, v, *, window: int, softcap: float = 0.0, prefix: int = 0):
-    """Sliding-window attention: the CUDA kernel for CUDA tensors,
-    ``swa_plain`` for CPU tensors."""
-    _check(q, k, v, window, prefix)
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return swa_plain(q, k, v, window=window, softcap=softcap,
-                         prefix=prefix)
+def _check_cuda(q, k, v):
+    """The kernels' own limits, for tensors not all on the CPU."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("swa takes q, k, v on one CUDA device (or all on "
                          "the CPU)")
-    build.refuse_grad("swa", q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"swa takes fp32 or bf16 q, k, v of one dtype, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    b, s, h, hd = q.shape
-    kh = k.shape[2]
+    b, _, h, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"swa kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if q.dtype == torch.float32 and b * h > MAX_GRID_Y:
         raise ValueError(f"swa kernel takes B * H <= {MAX_GRID_Y}, got "
                          f"{b * h}")
+
+
+def swa(q, k, v, *, window: int, softcap: float = 0.0, prefix: int = 0):
+    """Sliding-window attention: the CUDA kernel for CUDA tensors,
+    ``swa_plain`` for CPU tensors. Where autograd needs a gradient of a
+    CUDA input, the call goes through ``_SwaGrad``, whose backward is
+    ``swa_bwd``'s kernels; otherwise nothing is saved."""
+    _check(q, k, v, window, prefix)
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return swa_plain(q, k, v, window=window, softcap=softcap,
+                         prefix=prefix)
+    _check_cuda(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _SwaGrad.apply(q, k, v, window, softcap, prefix)
+    return _forward(q, k, v, window, softcap, prefix)
+
+
+def _forward(q, k, v, window, softcap, prefix):
+    """The forward kernel on checked CUDA tensors."""
+    dev = q.device
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
     q, k, v = (build.aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
@@ -138,3 +168,103 @@ def swa(q, k, v, *, window: int, softcap: float = 0.0, prefix: int = 0):
 
 
 swa.launches = 0
+
+
+class _SwaGrad(torch.autograd.Function):
+    """``swa`` under autograd on the card: the forward kernel, then
+    ``swa_bwd``'s kernels. Only q, k, v are saved; the backward recomputes
+    the rest."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, softcap, prefix):
+        ctx.save_for_backward(q, k, v)
+        ctx.band = (window, softcap, prefix)
+        return _forward(q, k, v, window, softcap, prefix)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        window, softcap, prefix = ctx.band
+        dq, dk, dv = swa_bwd(q, k, v, dout, window=window, softcap=softcap,
+                             prefix=prefix)
+        return dq, dk, dv, None, None, None
+
+
+def swa_bwd_plain(q, k, v, dout, *, window: int, softcap: float = 0.0,
+                  prefix: int = 0):
+    """Plain version of ``swa_bwd``, by the kernels' algorithm in fp32:
+    lse, P = exp(s - lse), O and D = rowsum(dO * O), dP = dO V^T and
+    dS = P (dP - D) times the softcap's derivative 1 - (s / cap)^2; dq =
+    scale dS K, dk = scale dS^T Q and dv = P^T dO, summed over each KV
+    head's query heads. Returns (dq, dk, dv) in q's dtype."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.reshape(b, sq, kh, g, hd).float() * scale
+    kf, vf = k.float(), v.float()
+    do = dout.reshape(b, sq, kh, g, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf)
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sq, device=q.device)[None, :]
+    band = ((kp <= qp) | (kp < prefix)) & (kp > qp - window)
+    masked = s.masked_fill(~band, float("-inf"))
+    lse = torch.logsumexp(masked, dim=-1, keepdim=True)
+    p = torch.exp(masked - lse)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, vf)
+    dd = (do * o).sum(-1)                                  # (B,S,KH,G)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", do, vf)
+    ds = p * (dp - dd.permute(0, 2, 3, 1)[..., None])
+    if softcap > 0.0:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qf)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, do)
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
+
+
+def swa_bwd(q, k, v, dout, *, window: int, softcap: float = 0.0,
+            prefix: int = 0):
+    """(dq, dk, dv) of ``swa`` for the output's cotangent ``dout``: the
+    CUDA kernels of ``csrc/swa_bwd.cu`` for CUDA tensors (two launches,
+    one count), ``swa_bwd_plain`` for CPU tensors. In q's dtype."""
+    _check(q, k, v, window, prefix)
+    if dout.shape != q.shape:
+        raise ValueError(f"swa_bwd takes dout of q's shape {tuple(q.shape)}, "
+                         f"got {tuple(dout.shape)}")
+    if all(t.device.type == "cpu" for t in (q, k, v, dout)):
+        return swa_bwd_plain(q, k, v, dout, window=window, softcap=softcap,
+                             prefix=prefix)
+    _check_cuda(q, k, v)
+    dev = q.device
+    if dout.device != dev:
+        raise ValueError("swa_bwd takes dout on q's device")
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    if b * h > MAX_GRID_Y:
+        raise ValueError(f"swa_bwd kernel takes B * H <= {MAX_GRID_Y}, got "
+                         f"{b * h}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    dout = dout.to(q.dtype).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    dd = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    lib = build.load()
+    code = lib.repro_swa_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+        dd.data_ptr(), _DTYPES[q.dtype], b, s, h, kh, hd, int(window),
+        int(prefix), float(1.0 / math.sqrt(hd)), float(softcap), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.count_launch(swa_bwd)
+    build.check(code, "swa_bwd")
+    return dq, dk, dv
+
+
+swa_bwd.launches = 0

@@ -37,6 +37,26 @@ A tail chunk is padded with zeros, which changes neither the state nor
 the cumulative decays, so T need not be a multiple of ``chunk``. The
 wrapper takes the plain version only for CPU tensors; for CUDA tensors it
 launches the kernels or raises.
+
+The backward. Where autograd needs a gradient of a CUDA input, ``wkv6``
+applies ``_Wkv6Grad``: its forward is the kernels above, whose scratch
+chunk start states it keeps, and its backward is ``wkv6_bwd``, the
+hand-written CUDA kernels of ``csrc/wkv6_bwd.cu`` (fp32, two launches,
+no atomics): a CTA per (b, h, 8 value columns) walks the chunks in
+reverse, recomputes each chunk's 64 per-step states from its start state
+and walks back through them with G = dL/dS_t, every factor a single
+step's decay (<= 1); a second pass sums the column blocks' partial dr,
+dk, dw_log and du. They replace no TPU kernel: the reference takes this
+gradient by JAX's autodiff of ``rwkv.wkv6_chunked``
+(src/repro/models/rwkv.py:80). Bound on the H100: one read of the
+inputs and one write of the gradients; the recurrence's 14 C^2
+operations a step and head, priced as the forward's are (three times
+over on the TF32 tensor cores), take less than that at C = 64.
+``wkv6_bwd_plain`` is its plain version, the
+same walk in fp32. The casts of w_log, u and s0 to fp32 happen outside
+the Function, so their gradients come back in their own dtypes. Under
+``torch.no_grad()``, or when no input needs a gradient, the forward
+launches exactly as before and keeps nothing.
 """
 from __future__ import annotations
 
@@ -49,6 +69,7 @@ HEAD_SIZES = (16, 64)         # the reduced and the full rwkv6
 MAX_CHUNK = 128
 CHUNK = 64                    # the Pallas kernel's default chunk
 KERNEL_CHUNK = 64             # the CUDA kernels' own chunk (csrc/wkv6.cu)
+BWD_COLUMNS = 8               # value columns a CTA of csrc/wkv6_bwd.cu
 
 
 def wkv6_plain(r, k, v, w_log, u, s0=None, *, chunk: int = CHUNK):
@@ -119,37 +140,59 @@ def cumsum_frame(t: int, chunk: int) -> int:
     return 2 * KERNEL_CHUNK if wide else KERNEL_CHUNK
 
 
-def wkv6(r, k, v, w_log, u, s0=None, *, chunk: int = CHUNK):
-    """(out, s_T): the CUDA kernels for CUDA tensors (their own chunk of
-    ``KERNEL_CHUNK`` steps, whatever ``chunk`` is), ``wkv6_plain`` for CPU
-    tensors."""
-    _check(r, k, v, w_log, u, s0, chunk)
-    ins = [x for x in (r, k, v, w_log, u, s0) if x is not None]
-    if all(x.device.type == "cpu" for x in ins):
-        return wkv6_plain(r, k, v, w_log, u, s0, chunk=chunk)
+def _check_cuda(r, k, v, ins):
+    """The kernels' own limits, for tensors not all on the CPU."""
     dev = r.device
     if dev.type != "cuda" or any(x.device != dev for x in ins):
         raise ValueError("wkv6 takes its tensors on one CUDA device (or all "
                          "on the CPU)")
-    build.refuse_grad("wkv6", *ins)
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise ValueError(f"wkv6 takes fp32 or bf16 r, k, v of one dtype, got "
                          f"{r.dtype}, {k.dtype}, {v.dtype}")
-    b, h, t, c = r.shape
+    c = r.shape[3]
     if c not in HEAD_SIZES:
         raise ValueError(f"wkv6 kernel takes head size in {HEAD_SIZES}, got "
                          f"{c}")
+
+
+def wkv6(r, k, v, w_log, u, s0=None, *, chunk: int = CHUNK):
+    """(out, s_T): the CUDA kernels for CUDA tensors (their own chunk of
+    ``KERNEL_CHUNK`` steps, whatever ``chunk`` is), ``wkv6_plain`` for CPU
+    tensors. Where autograd needs a gradient of a CUDA input, the call
+    goes through ``_Wkv6Grad``, whose backward is ``wkv6_bwd``'s kernels;
+    otherwise nothing is saved."""
+    _check(r, k, v, w_log, u, s0, chunk)
+    ins = [x for x in (r, k, v, w_log, u, s0) if x is not None]
+    if all(x.device.type == "cpu" for x in ins):
+        return wkv6_plain(r, k, v, w_log, u, s0, chunk=chunk)
+    _check_cuda(r, k, v, ins)
+    # cast outside the Function, so that autograd returns dw_log, du and
+    # ds0 in their own dtypes
+    w_log = w_log.to(torch.float32)
+    u = u.to(torch.float32)
+    s0 = None if s0 is None else s0.to(torch.float32)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in ins):
+        return _Wkv6Grad.apply(r, k, v, w_log, u, s0, chunk)
+    return _forward(r, k, v, w_log, u, s0, chunk)[:2]
+
+
+def _forward(r, k, v, w_log, u, s0, chunk):
+    """The forward kernels on checked CUDA tensors (w_log, u, s0 fp32):
+    (out, s_T, the chunk start states (B, H, ceil(T/64), C, C) or None
+    where no kernel ran)."""
+    dev = r.device
+    b, h, t, c = r.shape
     r, k, v = (build.aligned(x) for x in (r, k, v))
-    w_log = build.aligned(w_log.to(torch.float32))
-    u = build.aligned(u.to(torch.float32))
+    w_log = build.aligned(w_log)
+    u = build.aligned(u)
     s0 = (torch.zeros((b, h, c, c), dtype=torch.float32, device=dev)
-          if s0 is None else build.aligned(s0.to(torch.float32)))
+          if s0 is None else build.aligned(s0))
     out = torch.empty((b, h, t, c), dtype=torch.float32, device=dev)
     s_t = torch.empty((b, h, c, c), dtype=torch.float32, device=dev)
     if b * h == 0:
-        return out, s_t
+        return out, s_t, None
     if t == 0:
-        return out, s_t.copy_(s0)
+        return out, s_t.copy_(s0), None
     if b * h > 65535:
         raise ValueError(f"wkv6 kernel takes B*H <= 65535, got {b * h}")
     n = -(-t // KERNEL_CHUNK)
@@ -164,7 +207,143 @@ def wkv6(r, k, v, w_log, u, s0=None, *, chunk: int = CHUNK):
                           torch.cuda.current_stream(dev).cuda_stream)
     build.count_launch(wkv6)
     build.check(code, "wkv6")
-    return out, s_t
+    return out, s_t, states
 
 
 wkv6.launches = 0
+
+
+class _Wkv6Grad(torch.autograd.Function):
+    """``wkv6`` under autograd on the card: the forward kernels, whose
+    chunk start states are kept, then ``wkv6_bwd``'s kernels. The
+    cotangent of an unused output arrives as None and counts as zero."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w_log, u, s0, chunk):
+        out, s_t, states = _forward(r, k, v, w_log, u, s0, chunk)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w_log, u, s0, states)
+        return out, s_t
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout, ds_t):
+        r, k, v, w_log, u, s0, states = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        dr, dk, dv, dw, du, ds0 = wkv6_bwd(r, k, v, w_log, u, s0, dout, ds_t,
+                                           states=states)
+        return dr, dk, dv, dw, du, None if s0 is None else ds0, None
+
+
+def wkv6_bwd_plain(r, k, v, w_log, u, s0, dout, ds_T):
+    """Plain version of ``wkv6_bwd``, by its kernel's algorithm in fp32:
+    the chunk start states every ``KERNEL_CHUNK`` steps from ``s0`` (None
+    is zero), then the chunks in reverse, each recomputing its per-step
+    states and walking back through them with G = dL/dS_t (``ds_T`` None
+    is zero). Returns (dr, dk, dv) in r's dtype and (dw_log, du, ds0)
+    fp32."""
+    b, h, t, c = r.shape
+    rf, kf, vf, do = (x.float() for x in (r, k, v, dout))
+    wd = torch.exp(w_log.float())
+    uf = u.float()
+    zero = torch.zeros((b, h, c, c), dtype=torch.float32, device=r.device)
+    s = zero if s0 is None else s0.float()
+    g = zero if ds_T is None else ds_T.float()
+    beta = (vf * do).sum(-1)                                   # (B,H,T)
+    a = (rf * uf[None, :, None, :] * kf).sum(-1)               # (B,H,T)
+
+    def step(s, i):
+        return wd[:, :, i, :, None] * s + kf[:, :, i, :, None] \
+            * vf[:, :, i, None, :]
+
+    starts = []
+    for i in range(t):
+        if i % KERNEL_CHUNK == 0:
+            starts.append(s)
+        s = step(s, i)
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    for j in reversed(range(len(starts))):
+        t0 = j * KERNEL_CHUNK
+        hist = [starts[j]]
+        for i in range(t0, min(t, t0 + KERNEL_CHUNK) - 1):
+            hist.append(step(hist[-1], i))
+        for i in reversed(range(t0, t0 + len(hist))):
+            sp = hist[i - t0]
+            ub = uf[None] * beta[:, :, i, None]
+            dr[:, :, i] = torch.einsum("bhcd,bhd->bhc", sp, do[:, :, i]) \
+                + ub * kf[:, :, i]
+            dk[:, :, i] = torch.einsum("bhcd,bhd->bhc", g, vf[:, :, i]) \
+                + ub * rf[:, :, i]
+            dv[:, :, i] = torch.einsum("bhc,bhcd->bhd", kf[:, :, i], g) \
+                + a[:, :, i, None] * do[:, :, i]
+            dw[:, :, i] = wd[:, :, i] * (sp * g).sum(-1)
+            g = wd[:, :, i, :, None] * g + rf[:, :, i, :, None] \
+                * do[:, :, i, None, :]
+    du = (rf * kf * beta[..., None]).sum((0, 2))
+    return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw, du, g
+
+
+def wkv6_bwd(r, k, v, w_log, u, s0, dout, ds_T, *, states):
+    """(dr, dk, dv, dw_log, du, ds0) of ``wkv6`` for the cotangents ``dout``
+    of out and ``ds_T`` of s_T (None: zero): the CUDA kernels of
+    ``csrc/wkv6_bwd.cu`` for CUDA tensors (two launches, one count),
+    ``wkv6_bwd_plain`` for CPU tensors. ``states`` is the forward's chunk
+    start states (``_forward``'s third output), which the kernels need;
+    the plain version recomputes them and takes None. dr, dk, dv in r's
+    dtype, the rest fp32."""
+    _check(r, k, v, w_log, u, s0, CHUNK)
+    ins = [x for x in (r, k, v, w_log, u, s0, dout, ds_T) if x is not None]
+    if dout.shape != r.shape or (ds_T is not None
+                                 and ds_T.shape != (*r.shape[:2],
+                                                    r.shape[3], r.shape[3])):
+        raise ValueError(f"wkv6_bwd takes dout {tuple(r.shape)} and ds_T "
+                         f"(B,H,C,C), got {tuple(dout.shape)}, "
+                         f"{None if ds_T is None else tuple(ds_T.shape)}")
+    if all(x.device.type == "cpu" for x in ins):
+        return wkv6_bwd_plain(r, k, v, w_log, u, s0, dout, ds_T)
+    _check_cuda(r, k, v, ins)
+    dev = r.device
+    b, h, t, c = r.shape
+    w_log, u = w_log.to(torch.float32), u.to(torch.float32)
+    if b * h == 0 or t == 0:
+        return (*(torch.zeros(r.shape, dtype=r.dtype, device=dev)
+                  for _ in range(3)),
+                torch.zeros(r.shape, dtype=torch.float32, device=dev),
+                torch.zeros((h, c), dtype=torch.float32, device=dev),
+                torch.zeros((b, h, c, c), dtype=torch.float32, device=dev)
+                if ds_T is None else ds_T.to(torch.float32).clone())
+    if b * h > 65535:
+        raise ValueError(f"wkv6_bwd kernel takes B*H <= 65535, got {b * h}")
+    n = -(-t // KERNEL_CHUNK)
+    if states is None or tuple(states.shape) != (b, h, n, c, c):
+        raise ValueError(f"wkv6_bwd takes the forward's states "
+                         f"{(b, h, n, c, c)}, got "
+                         f"{None if states is None else tuple(states.shape)}")
+    r, k, v = (x.contiguous() for x in (r, k, v))
+    w_log, u = w_log.contiguous(), u.contiguous()
+    dout = dout.to(torch.float32).contiguous()
+    ds_t = None if ds_T is None else ds_T.to(torch.float32).contiguous()
+    dr, dk, dv = (torch.empty((b, h, t, c), dtype=r.dtype, device=dev)
+                  for _ in range(3))
+    dw = torch.empty((b, h, t, c), dtype=torch.float32, device=dev)
+    du = torch.empty((h, c), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((b, h, c, c), dtype=torch.float32, device=dev)
+    nb = c // BWD_COLUMNS
+    part = torch.empty((3, nb, b, h, t, c), dtype=torch.float32, device=dev)
+    du_part = torch.empty((nb, b, h, c), dtype=torch.float32, device=dev)
+    lib = build.load()
+    code = lib.repro_wkv6_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
+        u.data_ptr(), dout.data_ptr(),
+        None if ds_t is None else ds_t.data_ptr(),
+        states.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), part.data_ptr(),
+        du_part.data_ptr(), _DTYPES[r.dtype], b, h, t, c, n, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.count_launch(wkv6_bwd)
+    build.check(code, "wkv6_bwd")
+    return dr, dk, dv, dw, du, ds0
+
+
+wkv6_bwd.launches = 0

@@ -25,8 +25,8 @@ loss over ``microbatches`` contiguous slices of the batch, sums them in
 step cast back to each parameter's dtype, and returns the loss and the
 gradient norm as 0-dim tensors (no host read). Nothing in it falls back:
 on the card a gradient through swa or wkv6 (the hybrid and ssm families,
-or a dense or moe model with a window) raises ``build.refuse_grad``'s
-``NotImplementedError`` until those kernels have a backward. The
+or a dense, moe or vlm model with a window) goes through their backward
+kernels (``kernels.swa.swa_bwd``, ``kernels.wkv6.wkv6_bwd``). The
 reference's sharding arguments (``param_pspecs``, ``batch_dim_spec``,
 ``act_model_shard``) are not taken. The serving step builders run under
 ``torch.no_grad()``; the serving caches are written in place.

@@ -6,6 +6,7 @@ runs on a GPU host without the reference package's dependencies:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -378,25 +379,121 @@ class TestServingKernels:
         assert fn.launches == before + cfg.n_layers
         assert bool(torch.isfinite(last).all())
 
-    @pytest.mark.parametrize("kernel", ["swa", "wkv6", "swa_256_prefix"])
-    def test_a_call_that_needs_a_gradient_raises(self, kernel):
+    # (B, S, H, KH, hd, window, prefix, softcap): hd 16, 64, 128, 256; GQA
+    # 1:1, 5:1, 8:1; W < S and W >= S; prefix 0 and > 0; softcap 0 and 30;
+    # S off the 64-row tile (32 at hd 256)
+    SWA_GRAD = [(2, 100, 4, 4, 16, 30, 0, 0.0),
+                (1, 300, 5, 1, 64, 70, 20, 30.0),
+                (2, 129, 10, 2, 64, 1000, 0, 0.0),
+                (1, 200, 8, 1, 128, 64, 0, 30.0),
+                (1, 130, 8, 1, 256, 50, 70, 0.0),
+                (1, 97, 8, 8, 256, 33, 40, 30.0)]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,s,h,kh,hd,w,prefix,cap", SWA_GRAD)
+    def test_swa_gradient_matches_the_plain_version(self, b, s, h, kh, hd, w,
+                                                    prefix, cap, dtype):
+        """Autograd through ``swa`` (the forward kernel, then ``swa_bwd``'s)
+        against autograd through ``swa_plain`` in fp32 on the same values:
+        dq, dk, dv in q's dtype, each within 1e-4 of its max|g| (fp32) or
+        one bf16 ulp of it (bf16: the kernel's fp32 sums rounded once), and
+        at least 1e-6 of max(1, max|dq, dk, dv|); the backward launched
+        once, the forward once."""
         dev = cuda_device()
-        if kernel.startswith("swa"):
-            hd, prefix = (256, 5) if kernel == "swa_256_prefix" else (16, 0)
-            q = seeded((1, 16, 2, hd), 1, dev).requires_grad_()
-            args = (q, seeded((1, 16, 1, hd), 2, dev),
-                    seeded((1, 16, 1, hd), 3, dev))
-            call = lambda: swa.swa(*args, window=4, prefix=prefix)
-        else:
-            r = seeded((1, 1, 8, 16), 1, dev).requires_grad_()
-            args = (r, r.detach(), r.detach(), -torch.ones(1, 1, 8, 16,
-                                                           device=dev),
-                    torch.zeros(1, 16, device=dev))
-            call = lambda: wkv6.wkv6(*args, chunk=4)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-        with torch.no_grad():
-            call()
+        q = seeded((b, s, h, hd), 1, dev) * (8.0 if cap else 1.0)
+        k, v = seeded((b, s, kh, hd), 2, dev), seeded((b, s, kh, hd), 3, dev)
+        dout = seeded((b, s, h, hd), 4, dev)
+        band = dict(window=w, softcap=cap, prefix=prefix)
+        t = [x.to(dtype).requires_grad_() for x in (q, k, v)]
+        before = (swa.swa.launches, swa.swa_bwd.launches)
+        got = torch.autograd.grad(swa.swa(*t, **band), t, dout.to(dtype))
+        assert (swa.swa.launches, swa.swa_bwd.launches) == (
+            before[0] + 1, before[1] + 1)
+        r = [x.detach().float().requires_grad_() for x in t]
+        want = torch.autograd.grad(swa.swa_plain(*r, **band), r,
+                                   dout.to(dtype).float())
+        scale = max(1.0, *(float(x.abs().max()) for x in want))
+        for g, x in zip(got, want):
+            assert g.dtype == dtype
+            peak = float(x.abs().max())
+            tol = (1e-4 * peak if dtype == torch.float32
+                   else 2.0 ** (math.floor(math.log2(peak)) - 7))
+            assert float((g.float() - x).abs().max()) <= max(tol,
+                                                             1e-6 * scale)
+
+    # (B, H, T, C, clip, s0)
+    WKV6_GRAD = [(1, 2, 1, 16, False, True), (2, 3, 77, 16, False, False),
+                 (1, 4, 200, 64, False, True), (1, 4, 130, 64, True, True),
+                 (2, 8, 64, 64, False, True)]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,h,t,c,clip,with_s0", WKV6_GRAD)
+    def test_wkv6_gradient_matches_the_plain_version(self, b, h, t, c, clip,
+                                                     with_s0, dtype):
+        """Autograd through ``wkv6`` (the forward kernels, then
+        ``wkv6_bwd``'s) with cotangents on out and s_T against autograd
+        through ``wkv6_plain`` in fp32: dr, dk, dv in r's dtype within 1e-4
+        of max|g| (one bf16 ulp in bf16), dw_log, du, ds0 within 1e-4; with
+        every w_log at the +4 clip, 2^-11 of max|g| (the plain chunked
+        form's one-ulp frame of lp) and dw_log, whose exact value is
+        ~e^{-e^4}, within 1e-6 of max(1, max|dr, dk, dv|)
+        (tests/test_torch_wkv6_grad.py)."""
+        dev = cuda_device()
+        rng = np.random.default_rng(t + c)
+        f = np.float32
+        r, k, v = (torch.from_numpy(rng.standard_normal((b, h, t, c))
+                                    .astype(f) * 0.5).to(dev)
+                   for _ in range(3))
+        wt = (np.full((b, h, t, c), 4.0, f) if clip
+              else rng.standard_normal((b, h, t, c)).astype(f))
+        w_log = torch.from_numpy(-np.exp(np.clip(wt, -8.0, 4.0))).to(dev)
+        u = torch.from_numpy(rng.standard_normal((h, c)).astype(f)).to(dev)
+        s0 = (torch.from_numpy(rng.standard_normal((b, h, c, c)).astype(f)
+                               * 0.1).to(dev) if with_s0 else None)
+        dout, ds_t = seeded((b, h, t, c), 5, dev), seeded((b, h, c, c), 6,
+                                                          dev)
+        args = [r.to(dtype), k.to(dtype), v.to(dtype), w_log, u, s0]
+        leaves = [x.requires_grad_() for x in args if x is not None]
+        before = (wkv6.wkv6.launches, wkv6.wkv6_bwd.launches)
+        got = torch.autograd.grad(wkv6.wkv6(*args), leaves, (dout, ds_t))
+        assert (wkv6.wkv6.launches, wkv6.wkv6_bwd.launches) == (
+            before[0] + 1, before[1] + 1)
+        ref = [x.detach().float().requires_grad_() for x in leaves]
+        full = ref + [None] * (6 - len(ref))
+        want = torch.autograd.grad(wkv6.wkv6_plain(*full, chunk=128), ref,
+                                   (dout, ds_t))
+        scale = max(1.0, *(float(x.abs().max()) for x in want[:3]))
+        for i, (g, x) in enumerate(zip(got, want)):
+            assert g.dtype == leaves[i].dtype
+            peak = float(x.abs().max())
+            if clip and i == 3:
+                tol = 1e-6 * scale
+            elif dtype == torch.bfloat16 and i < 3:
+                tol = 2.0 ** (math.floor(math.log2(peak)) - 7)
+            else:
+                tol = (2.0 ** -11 if clip else 1e-4) * peak
+            assert float((g.float() - x).abs().max()) <= tol, i
+
+    def test_two_backward_calls_are_bitwise_equal(self):
+        """The backward kernels sum in a fixed order (no atomics): the
+        same inputs give the same bits, at hymba's heads and rwkv6's."""
+        dev = cuda_device()
+        q = seeded((1, 700, 25, 64), 1, dev).bfloat16()
+        k, v = (seeded((1, 700, 5, 64), i, dev).bfloat16() for i in (2, 3))
+        dout = seeded((1, 700, 25, 64), 4, dev).bfloat16()
+        first = swa.swa_bwd(q, k, v, dout, window=256)
+        assert all(torch.equal(a, b) for a, b in zip(
+            first, swa.swa_bwd(q, k, v, dout, window=256)))
+        r, kk, vv = (seeded((2, 8, 300, 64), i, dev).bfloat16()
+                     for i in (5, 6, 7))
+        w_log = -torch.exp(seeded((2, 8, 300, 64), 8, dev))
+        u = seeded((8, 64), 9, dev)
+        args = (r, kk, vv, w_log, u, None, seeded((2, 8, 300, 64), 10, dev),
+                None)
+        states = wkv6._forward(r, kk, vv, w_log, u, None, 64)[2]
+        first = wkv6.wkv6_bwd(*args, states=states)
+        assert all(torch.equal(a, b) for a, b in zip(
+            first, wkv6.wkv6_bwd(*args, states=states)))
 
     @pytest.mark.parametrize("arch", ["hymba_1_5b", "rwkv6_7b",
                                       "moonshot_v1_16b_a3b", "chatglm3_6b",
@@ -772,9 +869,9 @@ class TestVlmEncdecOnCard:
 @pytest.mark.cuda
 class TestTrainOnCard:
     """The chunked attention and the train step on the card: the chunked
-    path against ``direct_attention`` at a shape both fit, the step of a
-    reduced dense model against the CPU, and the refusals of the families
-    whose gradient would pass through a forward-only kernel."""
+    path against ``direct_attention`` at a shape both fit, and the step of
+    reduced models against the CPU, the hybrid, ssm and windowed ones
+    through the backward kernels."""
 
     @pytest.mark.parametrize("causal,window,prefix,softcap",
                              [(True, 0, 0, 0.0), (True, 0, 100, 30.0),
@@ -809,18 +906,28 @@ class TestTrainOnCard:
             torch.testing.assert_close(
                 g, r, rtol=1e-4, atol=1e-6 * max(1.0, float(r.abs().max())))
 
-    def test_reduced_train_step_equals_the_cpu(self):
-        """One step of reduced stablelm (fp32, 2 microbatches, remat) at
+    @pytest.mark.parametrize("arch,window", [("stablelm_1_6b", 0),
+                                             ("hymba_1_5b", 0),
+                                             ("rwkv6_7b", 0),
+                                             ("stablelm_1_6b", 8)])
+    def test_reduced_train_step_equals_the_cpu(self, arch, window):
+        """One step of ``arch`` reduced (fp32, 2 microbatches, remat) at
         S=300, card against CPU from the same weights: loss and grad_norm
-        rtol 1e-4, parameters atol 1e-6; no kernel launched."""
+        rtol 1e-4, parameters atol 1e-6. Unwindowed stablelm launches no
+        kernel; hymba (its window), rwkv6 and stablelm at window 8 launch
+        swa or wkv6 twice a layer a microbatch (remat recomputes each
+        layer) and its backward once."""
         dev = cuda_device()
-        cfg = get_config("stablelm_1_6b").reduced()
+        cfg = get_config(arch).reduced()
         models = {"cpu": zoo.init_model(cfg, seed=0, device="cpu")}
         models[dev] = zoo.init_model(cfg, seed=0, device=dev)
         models[dev].load_state_dict(models["cpu"].state_dict())
         rng = np.random.default_rng(2)
         toks = rng.integers(0, cfg.vocab_size, (4, 301))
-        step = zoo.make_train_step(cfg, lr=1e-2, microbatches=2)
+        step = zoo.make_train_step(cfg, lr=1e-2, microbatches=2,
+                                   window=window)
+        kernel = ("wkv6" if cfg.family == "ssm" else "swa"
+                  if cfg.family == "hybrid" or window else None)
         out = {}
         for d, m in models.items():
             batch = {"tokens": torch.as_tensor(toks[:, :-1], device=d),
@@ -828,24 +935,13 @@ class TestTrainOnCard:
                      "weight": torch.linspace(0.5, 2.0, 4, device=d)}
             before = dict(kernels.launch_counts())
             out[d] = {n: float(v) for n, v in step(m, batch).items()}
-            assert kernels.launch_counts() == before
+            want = dict(before)
+            if kernel and d == dev:
+                want[kernel] += 4 * cfg.n_layers
+                want[f"{kernel}_bwd"] += 2 * cfg.n_layers
+            assert kernels.launch_counts() == want
         for n in ("loss", "grad_norm"):
             assert out[dev][n] == pytest.approx(out["cpu"][n], rel=1e-4)
         for p, q in zip(models[dev].parameters(),
                         models["cpu"].parameters()):
             assert float((p.detach().cpu() - q.detach()).abs().max()) <= 1e-6
-
-    @pytest.mark.parametrize("arch,window", [("hymba_1_5b", 0),
-                                             ("rwkv6_7b", 0),
-                                             ("stablelm_1_6b", 8)])
-    def test_train_step_refuses_forward_only_kernels(self, arch, window):
-        """hymba (swa at its window), rwkv6 (wkv6) and a windowed dense
-        model: the step raises the NotImplementedError naming item 5, and
-        takes no plain version on the card."""
-        dev = cuda_device()
-        cfg = get_config(arch).reduced()
-        model = zoo.init_model(cfg, seed=0, device=dev)
-        toks = torch.randint(0, cfg.vocab_size, (2, 33), device=dev)
-        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-        with pytest.raises(NotImplementedError, match="item 5"):
-            zoo.make_train_step(cfg, window=window)(model, batch)

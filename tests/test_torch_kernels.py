@@ -178,6 +178,6 @@ class TestBuild:
     def test_sources_and_flags(self):
         assert {s.name for s in build.sources()} == {
             "fedagg.cu", "pairscore.cu", "planner.cu", "probe.cu", "swa.cu",
-            "wkv6.cu"}
+            "swa_bwd.cu", "wkv6.cu", "wkv6_bwd.cu"}
         assert "--use_fast_math" not in build.NVCC_FLAGS
         assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
