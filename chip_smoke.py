@@ -22,8 +22,12 @@ Phases, each fatal on failure:
      band-masked SDPA; the backward kernels swa_bwd and wkv6_bwd against
      ``torch.autograd.grad`` through swa_plain and wkv6_plain in fp32:
      swa_bwd at hymba's (1, 4096, 25, 5, 64) W=2048 and at paligemma's hd
-     256 with its 256-token prefix in bf16, in fp32 at hd 16 and 128 with
-     softcap 30 and at the tiles' edges; wkv6_bwd at (1, 64, 4096, 64) in
+     256 with its 256-token prefix in bf16 (the wgmma kernels, with the
+     forward's output and lse, whose lse is checked too), in bf16 at every
+     head dim with a prefix, softcap 30 and groups 1, 5 and 8, in fp32
+     (the CUDA-core kernels) at hd 16 and 128 with softcap 30 and at the
+     tiles' edges, timed beside SDPA's backward alone and its forward and
+     backward; wkv6_bwd at (1, 64, 4096, 64) in
      bf16 and fp32, with every w_log at the +4 clip; each twice, bitwise
      equal, and timed beside its bound;
   3. the wireless engine at Monte-Carlo scale (B=64, N=10,000, K=128),
@@ -823,13 +827,25 @@ def phase_wkv6(torch, dev, kinfo):
 
 # the backward kernels' cases: (B, S, H, KH, hd, W, softcap, prefix, dtype):
 # hymba's training shape (its 2,048 window bites at S = 4096), paligemma's
-# head_dim 256 with its 256-token prefix, fp32 at hd 16 and 128 with softcap
-# 30, and the tiles' edges (64-row tiles, 32 at hd 256) with and without a
-# prefix, W = 1 and g = 1
+# head_dim 256 with its 256-token prefix; bf16 (the wgmma kernels) at every
+# head dim with S off the 64-row tile, a prefix that crosses a tile,
+# softcap 30 and group sizes 1, 5 and 8, and at W = 1; fp32 (the CUDA-core
+# kernels) at hd 16 and 128 with softcap 30 and at the tiles' edges (64
+# rows, 32 at hd 256) with and without a prefix
 SWA_BWD_CASES = {
     "hymba train": (1, 4096, 25, 5, 64, 2048, 0.0, 0, "bfloat16"),
     "paligemma hd 256 prefix 256": (1, 4096, 8, 1, 256, 2048, 0.0, 256,
                                     "bfloat16"),
+    "bf16 hd 16 g 5 prefix 70 softcap 30": (2, 333, 5, 1, 16, 100, 30.0, 70,
+                                            "bfloat16"),
+    "bf16 hd 64 g 1 prefix 90 softcap 30": (1, 200, 4, 4, 64, 70, 30.0, 90,
+                                            "bfloat16"),
+    "bf16 hd 128 g 8 prefix 70 softcap 30": (1, 197, 8, 1, 128, 33, 30.0, 70,
+                                             "bfloat16"),
+    "bf16 hd 256 g 8 prefix 70 softcap 30": (1, 97, 8, 1, 256, 33, 30.0, 70,
+                                             "bfloat16"),
+    "bf16 hd 256 g 1 prefix 70": (1, 130, 4, 4, 256, 50, 0.0, 70,
+                                  "bfloat16"),
     "hd 16 softcap 30": (2, 300, 4, 1, 16, 256, 30.0, 0, "float32"),
     "hd 128 softcap 30": (1, 1024, 16, 2, 128, 512, 30.0, 0, "float32"),
     "hd 64 tile edges prefix 70": (2, 129, 6, 3, 64, 65, 0.0, 70, "float32"),
@@ -840,15 +856,23 @@ SWA_BWD_CASES = {
     "hd 16 S < W": (2, 63, 4, 1, 16, 256, 0.0, 0, "float32"),
 }
 GRAD_RTOL = 1e-4         # fp32 gradients: of max|g|
+# swa_bwd's bf16 gradients: two bf16 ulps of max|g|. The wgmma kernels
+# round P and dS to bf16 for the tensor cores and take D = dO . O from the
+# forward's bf16 output (as FlashAttention-2/3 do); an fp32 emulation of
+# that rounding on the CPU lands up to 1.70 ulps from autograd through
+# swa_plain in fp32 over 20 seeds of the card tests' shapes, and up to 1.08
+# with D from an fp32 O, so P and dS alone pass one ulp
+SWA_BWD_ULPS = 2
 
 
-def grad_tolerance(torch, ref, dtype: str, scale: float = 0.0) -> float:
-    """A gradient's tolerance: one bf16 ulp of max|ref| where the kernel
-    writes bf16 (its fp32 sums rounded once), else GRAD_RTOL of max|ref|;
-    at least 1e-6 of ``scale`` (max(1, the largest of the call's
+def grad_tolerance(torch, ref, dtype: str, scale: float = 0.0,
+                   ulps: int = 1) -> float:
+    """A gradient's tolerance: ``ulps`` bf16 ulps of max|ref| where the
+    kernel writes bf16 (its fp32 sums rounded once), else GRAD_RTOL of
+    max|ref|; at least 1e-6 of ``scale`` (max(1, the largest of the call's
     gradients)), the CPU tests' atol, for a gradient whose exact value
     cancels to about 0 (swa at W = 1: dS = P (dP - D) = 0)."""
-    tol = (bf16_ulp(ref) if dtype == "bfloat16"
+    tol = (ulps * bf16_ulp(ref) if dtype == "bfloat16"
            else GRAD_RTOL * float(ref.abs().max()))
     return max(tol, 1e-6 * scale)
 
@@ -861,13 +885,36 @@ def swa_plain_grads(torch, q, k, v, dout, **band):
     return torch.autograd.grad(SW.swa_plain(*t, **band), t, dout.float())
 
 
+def swa_fwd_saved(torch, q, k, v, band) -> tuple:
+    """What ``_SwaGrad`` saves for ``swa_bwd``: the forward's output and
+    lse for bf16 (checked here: lse within 1e-5 of max|lse| of
+    ``swa_lse_plain``, the output equal to the serving path's, lse null,
+    bit for bit), None and None for fp32."""
+    from repro_torch.kernels import swa as SW
+    if q.dtype != torch.bfloat16:
+        return None, None, {}
+    w, cap, p = band["window"], band["softcap"], band["prefix"]
+    out, lse = SW._forward(q, k, v, w, cap, p, with_lse=True)
+    served = SW._forward(q, k, v, w, cap, p)
+    ref = SW.swa_lse_plain(q.float(), k.float(), v.float(), **band)
+    err = float((lse - ref).abs().max())
+    tol = 1e-5 * float(ref.abs().max())
+    if not (err <= tol and torch.equal(out, served)):
+        raise AssertionError(f"swa forward with lse: lse err {err} "
+                             f"(tolerance {tol}), output equal to the "
+                             f"serving path's: {torch.equal(out, served)}")
+    return out, lse, dict(lse_max_abs_err=err, lse_tolerance=tol)
+
+
 def phase_swa_bwd(torch, dev, kinfo):
-    """swa's backward kernels (``swa_bwd``, csrc/swa_bwd.cu) against
-    autograd through ``swa_plain`` in fp32 on the card, each of dq, dk, dv
-    within ``grad_tolerance``; twice on the same inputs, bitwise equal;
-    timed at hymba's and paligemma's shapes beside their bound (10 hd
-    operations a pair of the band: q.k, dO.v, dS k, dS q, P dO) and beside
-    SDPA's forward and backward with the band as a mask."""
+    """swa's backward kernels (``swa_bwd``, csrc/swa_bwd.cu: the wgmma
+    kernels for bf16 with the forward's output and lse, the CUDA-core ones
+    for fp32) against autograd through ``swa_plain`` in fp32 on the card,
+    each of dq, dk, dv within ``grad_tolerance``; twice on the same inputs,
+    bitwise equal; timed at hymba's and paligemma's shapes beside their
+    bound (10 hd operations a pair of the band: q.k, dO.v, dS k, dS q,
+    P dO) and beside SDPA's backward alone and its forward and backward
+    with the band as a mask."""
     from repro_torch.kernels import swa as SW
     gen = torch.Generator(device=dev).manual_seed(23)
     checks, timed = {}, {}
@@ -881,16 +928,18 @@ def phase_swa_bwd(torch, dev, kinfo):
         dout = torch.randn((b, s, h, hd), generator=gen, device=dev)
         q, k, v, dout = (x.to(dtype) for x in (q, k, v, dout))
         band = dict(window=w, softcap=cap, prefix=p)
-        got = SW.swa_bwd(q, k, v, dout, **band)
+        out, lse, fwd_errs = swa_fwd_saved(torch, q, k, v, band)
+        got = SW.swa_bwd(q, k, v, dout, out=out, lse=lse, **band)
         torch.cuda.synchronize()
-        again = SW.swa_bwd(q, k, v, dout, **band)
+        again = SW.swa_bwd(q, k, v, dout, out=out, lse=lse, **band)
         ref = swa_plain_grads(torch, q, k, v, dout, **band)
-        errs = {}
+        errs = dict(fwd_errs)
         scale = max(1.0, *(float(r.abs().max()) for r in ref))
         for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
             err = max_err(torch, [g], [r])
-            tol = grad_tolerance(torch, r, dt, scale)
-            errs[gname] = dict(max_abs_err=err, tolerance=tol)
+            tol = grad_tolerance(torch, r, dt, scale, SWA_BWD_ULPS)
+            errs[gname] = dict(max_abs_err=err, tolerance=tol,
+                               ulps=err / bf16_ulp(r) if bf16_ulp(r) else 0)
             if not (g.dtype == dtype and err <= tol):
                 raise AssertionError(f"swa_bwd {name} {gname}: max abs err "
                                      f"{err} (tolerance {tol}), dtype "
@@ -900,52 +949,63 @@ def phase_swa_bwd(torch, dev, kinfo):
         checks[name] = errs
         if name in ("hymba train", "paligemma hd 256 prefix 256"):
             timed[name] = swa_bwd_times(torch, dev, (q, k, v, dout), band,
-                                        errs)
-        del q, k, v, dout, got, again, ref
+                                        (out, lse), errs)
+        del q, k, v, dout, out, lse, got, again, ref
     log(f"swa_bwd agrees with autograd through swa_plain (fp32) in "
         f"{len(checks)} cases, bitwise equal over two calls: {checks}")
     b, s, h, kh, hd, w, _, p, _ = SWA_BWD_CASES["hymba train"]
     pairs = swa_pairs(s, w) * b * h
     main = timed["hymba train"]
     kinfo["swa_bwd"] = dict(
-        max_abs_err=max(e["max_abs_err"] for e in checks["hymba train"]
-                        .values()),
-        **{key: main[key] for key in ("ms", "device_ms",
-                                      "device_ms_by_kernel", "plain_ms",
-                                      "library_ms", "library_device_ms",
-                                      "fwd_bwd_ms", "bound_ms", "bound_by",
-                                      "bound_fp32_ops_ms")},
+        max_abs_err=max(e["max_abs_err"] for key, e in
+                        checks["hymba train"].items()
+                        if key in ("dq", "dk", "dv")),
+        **{key: main[key] for key in (
+            "ms", "device_ms", "device_ms_by_kernel", "plain_ms",
+            "library_ms", "library_device_ms", "library_fwd_bwd_ms",
+            "library_fwd_bwd_device_ms", "fwd_bwd_ms", "bound_ms",
+            "bound_by", "bytes_with_scratch")},
+        routes={"bfloat16": "wgmma + TMA on the tensor cores, lse and the "
+                            "output from the forward: swa_bwd_dq_wgmma, "
+                            "swa_bwd_dkv_wgmma, swa_bwd_group_sum (H > KH)",
+                "float32": "the CUDA cores, lse and O recomputed: "
+                           "swa_bwd_dq, swa_bwd_dkv"},
         library="scaled_dot_product_attention(attn_mask=band, "
-                "enable_gqa=True), forward and backward (beside "
+                "enable_gqa=True): its backward alone (autograd.grad with "
+                "retain_graph on one forward), like for like; "
+                "library_fwd_bwd_ms its forward and backward (beside "
                 "fwd_bwd_ms: swa then swa_bwd)",
         plain="torch.autograd.grad through swa_plain in fp32, forward and "
               "backward",
-        bound_peak="989 TFLOP/s bf16, 3.35 TB/s; bound_fp32_ops_ms: the "
-                   "operations at 67 TFLOP/s fp32, the CUDA cores this "
-                   "kernel runs on",
-        tolerance="each of dq, dk, dv within one bf16 ulp of its max|ref| "
-                  "(bf16), 1e-4 of it (fp32), and at least 1e-6 of max(1, "
-                  "max|dq, dk, dv|), against autograd through swa_plain "
-                  "in fp32",
+        bound_peak="989 TFLOP/s bf16, 3.35 TB/s (the bytes: q, k, v, dout, "
+                   "out, lse read once, dq, dk, dv written once)",
+        tolerance=f"each of dq, dk, dv within {SWA_BWD_ULPS} bf16 ulps of "
+                  f"its max|ref| (bf16: P and dS rounded to bf16 for the "
+                  f"tensor cores, D from the bf16 output), 1e-4 of it "
+                  f"(fp32), and at least 1e-6 of max(1, max|dq, dk, dv|), "
+                  f"against autograd through swa_plain in fp32; the "
+                  f"forward's lse within 1e-5 of max|lse|",
         shape=[b, s, h, kh, hd, w], pairs=pairs,
         bound_ops_gflop=10 * hd * pairs / 1e9, timed=timed, checks=checks)
     log(f"swa_bwd {SWA_BWD_CASES['hymba train'][:6]}: {kinfo['swa_bwd']}")
 
 
-def swa_bwd_times(torch, dev, qkvo, band, errs) -> dict:
+def swa_bwd_times(torch, dev, qkvo, band, saved, errs) -> dict:
     """swa_bwd's time and device time by kernel at one shape, autograd
-    through the plain version's forward and backward, SDPA's forward and
-    backward with the band (and prefix) as a boolean mask, and the bound:
-    one read of q, k, v, dout and one write of dq, dk, dv, against 10 hd
-    operations a pair of the band at the inputs' type's peak."""
+    through the plain version's forward and backward, SDPA's backward
+    alone and its forward and backward with the band (and prefix) as a
+    boolean mask, and the bound: one read of q, k, v, dout, the forward's
+    output and lse and one write of dq, dk, dv, against 10 hd operations a
+    pair of the band at the inputs' type's peak."""
     import torch.nn.functional as F
     from repro_torch.kernels import swa as SW
     from repro_torch.launch.roofline import PEAK_BF16_S, PEAK_FP32_S
     q, k, v, dout = qkvo
+    out, lse = saved
     b, s, h, hd = q.shape
     kh = k.shape[2]
     w, p = band["window"], band["prefix"]
-    call = lambda: SW.swa_bwd(q, k, v, dout, **band)
+    call = lambda: SW.swa_bwd(q, k, v, dout, out=out, lse=lse, **band)
 
     def fwd_bwd():
         t = [x.detach().requires_grad_() for x in (q, k, v)]
@@ -959,14 +1019,27 @@ def swa_bwd_times(torch, dev, qkvo, band, errs) -> dict:
 
     def sdpa():
         t = [x.detach().requires_grad_() for x in (qt, kt, vt)]
-        out = F.scaled_dot_product_attention(*t, attn_mask=mask,
-                                             enable_gqa=True)
-        return torch.autograd.grad(out, t, ot)
+        o = F.scaled_dot_product_attention(*t, attn_mask=mask,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, t, ot)
+
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                              enable_gqa=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, leaves, ot, retain_graph=True)
 
     pairs = swa_pairs(s, w, p) * b * h
     ops = 10 * hd * pairs
     elem = q.element_size()
-    bytes_moved = elem * (3 * b * s * h * hd + 4 * b * s * kh * hd)
+    bytes_moved = (elem * (5 * b * s * h * hd + 4 * b * s * kh * hd)
+                   + 4 * b * h * s)
+    # + the bf16 kernels' scratch, written and read once: D and lse (B, H,
+    # S rounded up to 64), and under GQA the fp32 partials of dk and dv
+    rows = -(-s // 64) * 64
+    scratch = 2 * 2 * 4 * b * h * rows + (2 * 2 * 4 * b * s * h * hd
+                                          if h > kh else 0)
     peak = PEAK_BF16_S if q.dtype == torch.bfloat16 else PEAK_FP32_S
     b_ms, b_by = bound(bytes_moved, ops, peak)
     by_kernel = kernel_times(torch, call, reps=5)
@@ -977,10 +1050,12 @@ def swa_bwd_times(torch, dev, qkvo, band, errs) -> dict:
         fwd_bwd_ms=time_ms(torch, fwd_bwd, reps=3, runs=5),
         plain_ms=time_ms(torch, lambda: swa_plain_grads(
             torch, q, k, v, dout, **band), reps=1, runs=3),
-        library_ms=time_ms(torch, sdpa, reps=3, runs=5),
-        library_device_ms=device_ms(torch, sdpa, reps=3),
-        bound_ms=b_ms, bound_by=b_by,
-        bound_fp32_ops_ms=ops / PEAK_FP32_S * 1e3, pairs=pairs)
+        library_ms=time_ms(torch, sdpa_bwd, reps=3, runs=5),
+        library_device_ms=device_ms(torch, sdpa_bwd, reps=3),
+        library_fwd_bwd_ms=time_ms(torch, sdpa, reps=3, runs=5),
+        library_fwd_bwd_device_ms=device_ms(torch, sdpa, reps=3),
+        bound_ms=b_ms, bound_by=b_by, pairs=pairs,
+        bytes_with_scratch=bytes_moved + scratch)
 
 
 # the wkv6 backward's cases: (B, H, T, C, dtype, inputs' options, ds_T)

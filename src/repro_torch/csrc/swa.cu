@@ -59,6 +59,11 @@
 //    the row before the output's own rounding.
 //  - The output is staged in shared memory, laid out as the Q tile, and
 //    written with 16-byte stores, rows past S skipped.
+//  - Under autograd (`repro_swa` given an lse pointer) a second build of
+//    the kernel also writes each row's lse = (m + log2 l) ln 2, (B, H, S)
+//    fp32, which the backward's bf16 kernels read (swa_bwd.cu); the
+//    serving path (lse null) runs the first build, whose instructions the
+//    lse does not change.
 //  - hd 256 (paligemma): the O accumulator is 128 fp32 registers a thread
 //    and S 32 more. The producer is a whole warpgroup that gives its
 //    registers up (setmaxnreg 24), so each consumer thread takes 240, as
@@ -79,9 +84,7 @@
 // by one word), a 4 x 4 register tile of scores per thread, (m, l) reduced
 // with 16-lane shuffles. The tensor cores take no fp32 operands (TF32 would
 // drop 13 bits).
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
 #include <cmath>
 #include <cstdint>
@@ -236,8 +239,10 @@ swa_fp32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v,
-                        void* out, int B, int S, int H, int KH, int W,
-                        int P, float scale, float cap, cudaStream_t stream) {
+                        void* out, float* lse, int B, int S, int H, int KH,
+                        int W, int P, float scale, float cap,
+                        cudaStream_t stream) {
+  if (lse != nullptr) return cudaErrorInvalidValue;   // bf16 only
   constexpr int HP = HD + 1;
   const size_t smem =
       sizeof(float) * (BQ * HP + BK * HP + BK * HD + BQ * (BK + 1));
@@ -265,214 +270,7 @@ constexpr int TK = 64;               // keys per tile
 // setmaxnreg can move its registers to the consumers
 template <int HD>
 constexpr int NTW = NWG * 128 + (HD == 256 ? 128 : 32);
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar) : "memory");
-}
-
-// Shared-memory matrix descriptor of wgmma: start, leading and stride byte
-// offsets (>> 4), swizzle mode (1 = 128 B, 3 = 32 B).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint32_t mode) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
-         (static_cast<uint64_t>(mode) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across an asynchronous wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (m64 n64, fp32) = A (shared, K-major) * B (shared, K-major)
-// (+ d if acc), k16
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d (m64 n64, fp32) += A (registers) * B (shared, MN-major), k16
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
-                                         uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-
-// d (m64 n16, fp32) += A (registers) * B (shared, MN-major), k16
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t* a,
-                                         uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, "
-      "1, 1, 1, 1;"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-
-// wgmma_ss and the m64n64 wgmma_rs with a k16 step's offsets (OA, OB, in
-// 16-byte units) added to the descriptors inside the asm, so that the
-// steps hold the two base descriptors in registers and not one pair each
-// (head_dim 256: 16 steps of S = Q K^T, 16 products of O += P V)
-template <uint32_t OA, uint32_t OB>
-__device__ __forceinline__ void wgmma_ss_at(float (&d)[32], uint64_t a,
-                                            uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %34, 0;\n"
-      "add.s64 da, %32, %35;\nadd.s64 db, %33, %36;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, da, db, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc), "n"(OA), "n"(OB));
-}
-
-template <uint32_t OB>
-__device__ __forceinline__ void wgmma_rs_at(float (&d)[32], const uint32_t* a,
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .b64 db;\nadd.s64 db, %36, %37;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, db, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(OB));
-}
-
-// S = Q K^T at head_dim 256: step kk in slab kk / 4, 32 bytes a step
-template <int QSLAB, int SLAB, int KK = 0>
-__device__ __forceinline__ void qk_256(float (&s)[32], uint64_t qd,
-                                       uint64_t kd) {
-  if constexpr (KK < 16) {
-    wgmma_ss_at<((KK / 4) * QSLAB >> 4) + 2 * (KK % 4),
-                ((KK / 4) * SLAB >> 4) + 2 * (KK % 4)>(s, qd, kd, KK > 0);
-    qk_256<QSLAB, SLAB, KK + 1>(s, qd, kd);
-  }
-}
-
-// O += P V at head_dim 256: k16 step kk (16 rows of V) times slab j
-template <int SLAB, int ROW, int I = 0>
-__device__ __forceinline__ void pv_256(float (&o)[128],
-                                       const uint32_t (&p)[4][4],
-                                       uint64_t vd) {
-  if constexpr (I < 16) {
-    constexpr int kk = I / 4, j = I % 4;
-    wgmma_rs_at<((j * SLAB + 16 * ROW * kk) >> 4)>(
-        *reinterpret_cast<float(*)[32]>(o + 32 * j), p[kk], vd);
-    pv_256<SLAB, ROW, I + 1>(o, p, vd);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 2^x (flushing results below 2^-126 to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+constexpr float LN2 = 0.6931471805599453f;
 
 // Shared-memory layout of one CTA; every tile is 1024-byte aligned, as the
 // 128-byte swizzle needs. A tile of HD columns is stored as SLABS slabs of
@@ -508,13 +306,13 @@ struct Smem {
 // products. At 128 the O accumulator alone is 64 registers a thread and
 // the shared memory ~193 KB: one CTA an SM; at 256 the accumulator is 128
 // registers and the shared memory 192 KB with two stages.
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(NTW<HD>, HD >= 128 ? 1 : 2)
 swa_wgmma(const __grid_constant__ CUtensorMap qmap,
           const __grid_constant__ CUtensorMap kmap,
           const __grid_constant__ CUtensorMap vmap,
-          __nv_bfloat16* __restrict__ out, int S, int H, int KH, int W,
-          int P, float scale_log2, float cap) {
+          __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S,
+          int H, int KH, int W, int P, float scale_log2, float cap) {
   using L = Smem<HD>;
   constexpr int NS = L::NS;
   static_assert(HD == 16 || HD == 64 || HD == 128 || HD == 256,
@@ -727,8 +525,18 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
   // j % CS of slab j / CS.
   constexpr int CH = HD / 8;                      // 16-byte chunks per row
   constexpr int CS = L::ROW / 16;                 // per slab row
-  const float d0 = fmaxf(quad_sum(l0), 1e-30f);
-  const float d1 = fmaxf(quad_sum(l1), 1e-30f);
+  const float l0s = quad_sum(l0), l1s = quad_sum(l1);
+  const float d0 = fmaxf(l0s, 1e-30f);
+  const float d1 = fmaxf(l1s, 1e-30f);
+  if constexpr (LSE) {
+    // under autograd: each row's log-sum-exp in natural-log units, for the
+    // backward (swa_bwd.cu); m is in the log2 domain
+    if (quad == 0) {
+      float* lrow = lse + (static_cast<int64_t>(b) * H + h) * S;
+      if (qp0 < S) lrow[qp0] = (m0 + log2f(l0s)) * LN2;
+      if (qp1 < S) lrow[qp1] = (m1 + log2f(l1s)) * LN2;
+    }
+  }
   uint8_t* stage = smem + L::O + wg * WQ * L::ROW;
   const int ra = row, rb = row + 8;
 #pragma unroll
@@ -754,68 +562,29 @@ swa_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime (CUDA 12.5 or later)
-// so that the library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// (B, S, heads * HD) bf16, box (rows, COLS = min(HD, 64)) swizzled as a row
-// of COLS * 2 bytes (128 at HD 64 and 128, 32 at HD 16)
-bool encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-            int HD, int rows) {
-  const int cols = HD < 64 ? HD : 64;
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * HD,
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * 2 * dims[1]};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols),
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                       : CU_TENSOR_MAP_SWIZZLE_32B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, int B, int S, int H, int KH, int W,
-                        int P, float scale, float cap, cudaStream_t stream) {
+                        void* out, float* lse, int B, int S, int H, int KH,
+                        int W, int P, float scale, float cap,
+                        cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   if (!encode(&qmap, q, B, S, H, HD, TQ) ||
       !encode(&kmap, k, B, S, KH, HD, TK) ||
       !encode(&vmap, v, B, S, KH, HD, TK))
     return cudaErrorInvalidValue;
+  // the serving path (lse null) and the training path are two builds, so
+  // that the former runs exactly the instructions it ran before lse
+  const auto kernel = lse == nullptr ? swa_wgmma<HD, false>
+                                     : swa_wgmma<HD, true>;
   const int smem = Smem<HD>::BYTES + 1024;          // + alignment slack
   cudaError_t err = cudaFuncSetAttribute(
-      swa_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int64_t ctas = static_cast<int64_t>(B) * H * ((S + TQ - 1) / TQ);
   if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
-  swa_wgmma<HD><<<static_cast<unsigned>(ctas), NTW<HD>, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, H, KH, W, P,
-      scale * LOG2E, cap);
+  kernel<<<static_cast<unsigned>(ctas), NTW<HD>, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, S, H, KH, W,
+      P, scale * LOG2E, cap);
   return cudaGetLastError();
 }
 
@@ -825,11 +594,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 // share it. hd in {16, 64, 128, 256} (the reduced and the full hymba, the
 // head_dim-128 decoders: chatglm3, moonshot, grok, llama4; paligemma);
 // H % KH == 0; W >= 1; P >= 0 prefix positions (0: none); cap <= 0: no
-// softcap. bf16 pointers must be 16-byte aligned.
+// softcap. bf16 pointers must be 16-byte aligned. lse: null, or (bf16
+// only) a (B, H, S) fp32 output of each row's log-sum-exp, which the
+// backward's bf16 kernels read.
 extern "C" int repro_swa(const void* q, const void* k, const void* v,
-                         void* out, int dtype, int B, int S, int H, int KH,
-                         int hd, int W, int P, float scale, float cap,
-                         int device, void* stream) {
+                         void* out, float* lse, int dtype, int B, int S,
+                         int H, int KH, int hd, int W, int P, float scale,
+                         float cap, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || W < 1 || P < 0 ||
@@ -842,6 +613,6 @@ extern "C" int repro_swa(const void* q, const void* k, const void* v,
          : hd == 64 ? launch_fp32<64> : launch_fp32<16>)
       : (hd == 256 ? launch_bf16<256> : hd == 128 ? launch_bf16<128>
          : hd == 64 ? launch_bf16<64> : launch_bf16<16>);
-  return static_cast<int>(launch(q, k, v, out, B, S, H, KH, W, P, scale,
-                                 cap, s));
+  return static_cast<int>(launch(q, k, v, out, lse, B, S, H, KH, W, P,
+                                 scale, cap, s));
 }

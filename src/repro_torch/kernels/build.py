@@ -50,12 +50,11 @@ SIGNATURES = {
     "repro_fedagg": (_P, _I, _I, _L, _P, _P, _I, _L, _I, _P),
     "repro_planner": (_P, _P, _P, _P, _P, _P, _P, _L, _I,
                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P),
-    "repro_swa": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                  _I, _P),
+    "repro_swa": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                  _F, _I, _P),
     "repro_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _I, _I, _I, _I, _P),
-    "repro_swa_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _I, _I, _I, _I, _F, _F, _I, _P),
+    "repro_swa_bwd": (_P,) * 13 + (_I,) * 8 + (_F, _F, _I, _P),
     "repro_wkv6_bwd": (_P,) * 16 + (_I,) * 7 + (_P,),
 }
 

@@ -33,19 +33,33 @@ chunked ``layers.chunked_attention``). The wrapper takes the plain version only 
 tensors; for CUDA tensors it launches a kernel or raises.
 
 The backward. Where autograd needs a gradient of a CUDA input, ``swa``
-applies ``_SwaGrad``: its forward is the kernel above, it saves q, k, v,
-and its backward is ``swa_bwd``, the hand-written CUDA kernels of
-``csrc/swa_bwd.cu`` (fp32 on the CUDA cores, two launches, no atomics):
-one walk per query tile recomputes the row's lse, O and D = dO . O and
-accumulates dq, another per key tile accumulates dk and dv over the
-group's query heads. They replace no TPU kernel: the reference takes this
-gradient by JAX's autodiff of ``layers.flash_attention``
+applies ``_SwaGrad``, whose backward is ``swa_bwd``, the hand-written CUDA
+kernels of ``csrc/swa_bwd.cu`` (no atomics: two calls give the same
+bits). They replace no TPU kernel: the reference takes this gradient by
+JAX's autodiff of ``layers.flash_attention``
 (src/repro/models/layers.py:214). Bound on the H100: 10 hd operations a
 pair of the band (five products of hd) against one read of q, k, v,
-dout and one write of dq, dk, dv; the operations bound it, at 989
-TFLOP/s for bf16 inputs. ``swa_bwd_plain`` is its plain version, the same
-algorithm in fp32. Under ``torch.no_grad()``, or when no input needs a
-gradient, the forward launches exactly as before and saves nothing.
+dout, the forward's output and lse and one write of dq, dk, dv; the
+operations bound it, at 989 TFLOP/s for bf16 inputs. The dtype sets the
+route, as for the forward:
+
+- bf16 (the training path): the forward kernel also writes each row's
+  lse, and ``_SwaGrad`` saves q, k, v, the output and lse. Three launches
+  on the tensor cores: ``swa_bwd_dq_wgmma`` forms D = rowsum(dO * O) from
+  the forward's output and accumulates dq (S = Q K^T, dP = dO V^T, dq +=
+  dS K: 3 products a pair); ``swa_bwd_dkv_wgmma``, one CTA per (b, query
+  head, key tile), accumulates dk and dv (S^T, dP^T, dv += P^T dO, dk +=
+  dS^T Q: 4); under GQA ``swa_bwd_group_sum`` adds each KV head's query
+  heads in a fixed order. P and dS are rounded to bf16 for the products.
+- fp32 (the model-level checks): ``_SwaGrad`` saves q, k, v, and two
+  launches on the CUDA cores recompute lse, O and D = dO . O in one walk
+  per query tile and accumulate dq, dk and dv over the group's query heads
+  in the next walks (9 products a pair).
+
+``swa_bwd_plain`` is the plain version, the same algorithm in fp32, with
+lse and D from ``out`` and ``lse`` where given; ``swa_lse_plain`` the
+forward's lse. Under ``torch.no_grad()``, or when no input needs a
+gradient, the forward launches with a null lse pointer and saves nothing.
 """
 from __future__ import annotations
 
@@ -146,25 +160,32 @@ def swa(q, k, v, *, window: int, softcap: float = 0.0, prefix: int = 0):
     return _forward(q, k, v, window, softcap, prefix)
 
 
-def _forward(q, k, v, window, softcap, prefix):
-    """The forward kernel on checked CUDA tensors."""
+def _forward(q, k, v, window, softcap, prefix, *, with_lse=False):
+    """The forward kernel on checked CUDA tensors. ``with_lse`` (bf16
+    only) also returns each row's log-sum-exp, (B, H, S) fp32, for the
+    backward: ``(out, lse)``."""
     dev = q.device
     b, s, h, hd = q.shape
     kh = k.shape[2]
+    if with_lse and q.dtype != torch.bfloat16:
+        raise ValueError("swa writes lse for bf16 inputs only")
     q, k, v = (build.aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if q.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     lib = build.load()
     code = lib.repro_swa(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), _DTYPES[q.dtype], b, s, h, kh, hd,
-                         int(window), int(prefix),
-                         float(1.0 / math.sqrt(hd)), float(softcap),
-                         dev.index,
+                         out.data_ptr(),
+                         None if lse is None else lse.data_ptr(),
+                         _DTYPES[q.dtype], b, s, h, kh, hd, int(window),
+                         int(prefix), float(1.0 / math.sqrt(hd)),
+                         float(softcap), dev.index,
                          torch.cuda.current_stream(dev).cuda_stream)
     build.count_launch(swa)
     build.check(code, "swa")
-    return out
+    return (out, lse) if with_lse else out
 
 
 swa.launches = 0
@@ -172,49 +193,83 @@ swa.launches = 0
 
 class _SwaGrad(torch.autograd.Function):
     """``swa`` under autograd on the card: the forward kernel, then
-    ``swa_bwd``'s kernels. Only q, k, v are saved; the backward recomputes
-    the rest."""
+    ``swa_bwd``'s kernels. bf16 saves q, k, v, the output and the
+    forward's lse, which the backward's kernels read in place of
+    recomputing the forward; fp32 saves q, k, v and recomputes."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, softcap, prefix):
-        ctx.save_for_backward(q, k, v)
         ctx.band = (window, softcap, prefix)
+        if q.dtype == torch.bfloat16:
+            out, lse = _forward(q, k, v, window, softcap, prefix,
+                                with_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v)
         return _forward(q, k, v, window, softcap, prefix)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
+        q, k, v, *fwd = ctx.saved_tensors
+        out, lse = fwd if fwd else (None, None)
         window, softcap, prefix = ctx.band
         dq, dk, dv = swa_bwd(q, k, v, dout, window=window, softcap=softcap,
-                             prefix=prefix)
+                             prefix=prefix, out=out, lse=lse)
         return dq, dk, dv, None, None, None
 
 
-def swa_bwd_plain(q, k, v, dout, *, window: int, softcap: float = 0.0,
-                  prefix: int = 0):
-    """Plain version of ``swa_bwd``, by the kernels' algorithm in fp32:
-    lse, P = exp(s - lse), O and D = rowsum(dO * O), dP = dO V^T and
-    dS = P (dP - D) times the softcap's derivative 1 - (s / cap)^2; dq =
-    scale dS K, dk = scale dS^T Q and dv = P^T dO, summed over each KV
-    head's query heads. Returns (dq, dk, dv) in q's dtype."""
+def _band_scores(q, k, window, softcap, prefix):
+    """q * scale as (B,S,KH,G,hd) fp32, the capped scores (B,KH,G,S,S) and
+    the same with -inf off the band."""
     b, sq, h, hd = q.shape
     kh = k.shape[2]
-    g = h // kh
-    scale = 1.0 / math.sqrt(hd)
-    qf = q.reshape(b, sq, kh, g, hd).float() * scale
-    kf, vf = k.float(), v.float()
-    do = dout.reshape(b, sq, kh, g, hd).float()
-    s = torch.einsum("bqkgh,bskh->bkgqs", qf, kf)
+    qf = q.reshape(b, sq, kh, h // kh, hd).float() * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float())
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
     qp = torch.arange(sq, device=q.device)[:, None]
     kp = torch.arange(sq, device=q.device)[None, :]
     band = ((kp <= qp) | (kp < prefix)) & (kp > qp - window)
-    masked = s.masked_fill(~band, float("-inf"))
-    lse = torch.logsumexp(masked, dim=-1, keepdim=True)
-    p = torch.exp(masked - lse)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, vf)
+    return qf, s, s.masked_fill(~band, float("-inf"))
+
+
+def swa_lse_plain(q, k, v, *, window: int, softcap: float = 0.0,
+                  prefix: int = 0):
+    """Plain version of the lse that the bf16 forward writes under
+    autograd: each row's log-sum-exp of its scores over the band, in
+    natural-log units, (B, H, S) fp32 (v is not read)."""
+    b, sq, h, _ = q.shape
+    masked = _band_scores(q, k, window, softcap, prefix)[2]
+    return torch.logsumexp(masked, dim=-1).reshape(b, h, sq)
+
+
+def swa_bwd_plain(q, k, v, dout, *, window: int, softcap: float = 0.0,
+                  prefix: int = 0, out=None, lse=None):
+    """Plain version of ``swa_bwd``, by the kernels' algorithm in fp32:
+    lse, P = exp(s - lse), O and D = rowsum(dO * O), dP = dO V^T and
+    dS = P (dP - D) times the softcap's derivative 1 - (s / cap)^2; dq =
+    scale dS K, dk = scale dS^T Q and dv = P^T dO, summed over each KV
+    head's query heads. With the forward's ``out`` (B,S,H,hd) and ``lse``
+    (B,H,S), as the bf16 kernels take them, P comes from ``lse`` and D
+    from ``out``; without them both are recomputed. Returns (dq, dk, dv) in
+    q's dtype."""
+    if (out is None) != (lse is None):
+        raise ValueError("swa_bwd takes out and lse together")
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    scale = 1.0 / math.sqrt(hd)
+    qf, s, masked = _band_scores(q, k, window, softcap, prefix)
+    kf, vf = k.float(), v.float()
+    do = dout.reshape(b, sq, kh, g, hd).float()
+    if lse is None:
+        lse = torch.logsumexp(masked, dim=-1, keepdim=True)
+        p = torch.exp(masked - lse)
+        o = torch.einsum("bkgqs,bskh->bqkgh", p, vf)
+    else:
+        p = torch.exp(masked - lse.float().reshape(b, kh, g, sq, 1))
+        o = out.reshape(b, sq, kh, g, hd).float()
     dd = (do * o).sum(-1)                                  # (B,S,KH,G)
     dp = torch.einsum("bqkgh,bskh->bkgqs", do, vf)
     ds = p * (dp - dd.permute(0, 2, 3, 1)[..., None])
@@ -228,39 +283,68 @@ def swa_bwd_plain(q, k, v, dout, *, window: int, softcap: float = 0.0,
 
 
 def swa_bwd(q, k, v, dout, *, window: int, softcap: float = 0.0,
-            prefix: int = 0):
+            prefix: int = 0, out=None, lse=None):
     """(dq, dk, dv) of ``swa`` for the output's cotangent ``dout``: the
-    CUDA kernels of ``csrc/swa_bwd.cu`` for CUDA tensors (two launches,
-    one count), ``swa_bwd_plain`` for CPU tensors. In q's dtype."""
+    CUDA kernels of ``csrc/swa_bwd.cu`` for CUDA tensors (one count a
+    call, whatever its launches), ``swa_bwd_plain`` for CPU tensors. In q's
+    dtype. bf16 CUDA tensors need the forward's ``out`` and ``lse``
+    (``_forward(..., with_lse=True)``); fp32 ones recompute them and take
+    None."""
     _check(q, k, v, window, prefix)
     if dout.shape != q.shape:
         raise ValueError(f"swa_bwd takes dout of q's shape {tuple(q.shape)}, "
                          f"got {tuple(dout.shape)}")
-    if all(t.device.type == "cpu" for t in (q, k, v, dout)):
-        return swa_bwd_plain(q, k, v, dout, window=window, softcap=softcap,
-                             prefix=prefix)
-    _check_cuda(q, k, v)
-    dev = q.device
-    if dout.device != dev:
-        raise ValueError("swa_bwd takes dout on q's device")
     b, s, h, hd = q.shape
     kh = k.shape[2]
-    if b * h > MAX_GRID_Y:
-        raise ValueError(f"swa_bwd kernel takes B * H <= {MAX_GRID_Y}, got "
-                         f"{b * h}")
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    dout = dout.to(q.dtype).contiguous()
+    if (out is None) != (lse is None):
+        raise ValueError("swa_bwd takes out and lse together")
+    if out is not None and (out.shape != q.shape
+                            or tuple(lse.shape) != (b, h, s)):
+        raise ValueError(f"swa_bwd takes out of q's shape and lse "
+                         f"{(b, h, s)}, got {tuple(out.shape)}, "
+                         f"{tuple(lse.shape)}")
+    if all(t.device.type == "cpu" for t in (q, k, v, dout)):
+        return swa_bwd_plain(q, k, v, dout, window=window, softcap=softcap,
+                             prefix=prefix, out=out, lse=lse)
+    _check_cuda(q, k, v)
+    dev = q.device
+    if dout.device != dev or (out is not None and (
+            out.device != dev or lse.device != dev)):
+        raise ValueError("swa_bwd takes dout, out and lse on q's device")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and out is None:
+        raise ValueError("swa_bwd on bf16 CUDA tensors takes the forward's "
+                         "out and lse (swa's _forward(..., with_lse=True))")
+    if not bf16 and out is not None:
+        raise ValueError("swa_bwd on fp32 CUDA tensors recomputes lse: pass "
+                         "out=None, lse=None")
+    q, k, v = (build.aligned(t) for t in (q, k, v))
+    dout = build.aligned(dout.to(q.dtype))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
-    dd = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    rows = s
+    dk_part = dv_part = None
+    if bf16:
+        out = build.aligned(out.to(q.dtype))
+        lse = lse.float().contiguous()
+        rows = -(-s // 64) * 64          # the scratch's rows, padded to 64
+        if h > kh:                       # each query head's dk, dv
+            dk_part, dv_part = (torch.empty((b, s, h, hd), **f32)
+                                for _ in range(2))
+    ws_lse, ws_dd = (torch.empty((b, h, rows), **f32) for _ in range(2))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = build.load()
     code = lib.repro_swa_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-        dd.data_ptr(), _DTYPES[q.dtype], b, s, h, kh, hd, int(window),
-        int(prefix), float(1.0 / math.sqrt(hd)), float(softcap), dev.index,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), ptr(out),
+        ptr(lse), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        ws_lse.data_ptr(), ws_dd.data_ptr(), ptr(dk_part), ptr(dv_part),
+        _DTYPES[q.dtype], b, s, h, kh, hd, int(window), int(prefix),
+        float(1.0 / math.sqrt(hd)), float(softcap), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     build.count_launch(swa_bwd)
     build.check(code, "swa_bwd")

@@ -380,25 +380,36 @@ class TestServingKernels:
         assert bool(torch.isfinite(last).all())
 
     # (B, S, H, KH, hd, window, prefix, softcap): hd 16, 64, 128, 256; GQA
-    # 1:1, 5:1, 8:1; W < S and W >= S; prefix 0 and > 0; softcap 0 and 30;
-    # S off the 64-row tile (32 at hd 256)
+    # 1:1, 5:1, 8:1 at every head dim (bf16: with and without the group-sum
+    # launch); W < S and W >= S; prefix 0 and > 0 (crossing the 64-row
+    # tile); softcap 0 and 30; S off the 64-row tile (32 at fp32's hd 256)
     SWA_GRAD = [(2, 100, 4, 4, 16, 30, 0, 0.0),
+                (1, 150, 8, 1, 16, 40, 70, 30.0),
                 (1, 300, 5, 1, 64, 70, 20, 30.0),
                 (2, 129, 10, 2, 64, 1000, 0, 0.0),
+                (1, 140, 8, 1, 64, 64, 70, 30.0),
                 (1, 200, 8, 1, 128, 64, 0, 30.0),
+                (1, 170, 8, 8, 128, 45, 70, 0.0),
                 (1, 130, 8, 1, 256, 50, 70, 0.0),
                 (1, 97, 8, 8, 256, 33, 40, 30.0)]
+    # bf16 gradients: two bf16 ulps of max|g|. The wgmma kernels round P
+    # and dS to bf16 for the tensor cores and take D = dO . O from the
+    # forward's bf16 output; an fp32 emulation of that rounding lands up to
+    # 1.70 ulps from autograd through swa_plain (1.08 with D from an fp32
+    # O: P and dS alone pass one ulp)
+    SWA_BWD_ULPS = 2
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("b,s,h,kh,hd,w,prefix,cap", SWA_GRAD)
     def test_swa_gradient_matches_the_plain_version(self, b, s, h, kh, hd, w,
                                                     prefix, cap, dtype):
-        """Autograd through ``swa`` (the forward kernel, then ``swa_bwd``'s)
-        against autograd through ``swa_plain`` in fp32 on the same values:
-        dq, dk, dv in q's dtype, each within 1e-4 of its max|g| (fp32) or
-        one bf16 ulp of it (bf16: the kernel's fp32 sums rounded once), and
-        at least 1e-6 of max(1, max|dq, dk, dv|); the backward launched
-        once, the forward once."""
+        """Autograd through ``swa`` (the forward kernel, then ``swa_bwd``'s:
+        the wgmma kernels with the forward's output and lse for bf16, the
+        CUDA-core ones for fp32) against autograd through ``swa_plain`` in
+        fp32 on the same values: dq, dk, dv in q's dtype, each within 1e-4
+        of its max|g| (fp32) or ``SWA_BWD_ULPS`` bf16 ulps of it (bf16),
+        and at least 1e-6 of max(1, max|dq, dk, dv|); the backward
+        launched once, the forward once."""
         dev = cuda_device()
         q = seeded((b, s, h, hd), 1, dev) * (8.0 if cap else 1.0)
         k, v = seeded((b, s, kh, hd), 2, dev), seeded((b, s, kh, hd), 3, dev)
@@ -417,9 +428,45 @@ class TestServingKernels:
             assert g.dtype == dtype
             peak = float(x.abs().max())
             tol = (1e-4 * peak if dtype == torch.float32
-                   else 2.0 ** (math.floor(math.log2(peak)) - 7))
+                   else self.SWA_BWD_ULPS
+                   * 2.0 ** (math.floor(math.log2(peak)) - 7))
             assert float((g.float() - x).abs().max()) <= max(tol,
                                                              1e-6 * scale)
+
+    @pytest.mark.parametrize("b,s,h,kh,hd,w,prefix,cap", SWA_GRAD)
+    def test_swa_forward_lse(self, b, s, h, kh, hd, w, prefix, cap):
+        """The bf16 forward under autograd writes each row's lse: within
+        1e-5 of max|lse| of ``swa_lse_plain``; its output equals the
+        serving path's (lse pointer null) bit for bit."""
+        dev = cuda_device()
+        q = seeded((b, s, h, hd), 1, dev).bfloat16() * (8.0 if cap else 1.0)
+        k, v = (seeded((b, s, kh, hd), i, dev).bfloat16() for i in (2, 3))
+        out, lse = swa._forward(q, k, v, w, cap, prefix, with_lse=True)
+        assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+        assert torch.equal(out, swa._forward(q, k, v, w, cap, prefix))
+        want = swa.swa_lse_plain(q.float(), k.float(), v.float(), window=w,
+                                 softcap=cap, prefix=prefix)
+        assert float((lse - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+    def test_swa_bwd_bf16_takes_the_forwards_out_and_lse(self):
+        """On bf16 CUDA tensors ``swa_bwd`` reads the forward's output and
+        lse and refuses a call without them; fp32 recomputes and refuses
+        them."""
+        dev = cuda_device()
+        q = seeded((1, 70, 4, 64), 1, dev)
+        k, v = (seeded((1, 70, 2, 64), i, dev) for i in (2, 3))
+        dout = seeded((1, 70, 4, 64), 4, dev)
+        bf = [x.bfloat16() for x in (q, k, v, dout)]
+        out, lse = swa._forward(*bf[:3], 32, 0.0, 0, with_lse=True)
+        with pytest.raises(ValueError):
+            swa.swa_bwd(*bf, window=32)
+        with pytest.raises(ValueError):
+            swa.swa_bwd(*bf, window=32, out=out)
+        with pytest.raises(ValueError):
+            swa.swa_bwd(q, k, v, dout, window=32, out=out.float(), lse=lse)
+        assert all(g.dtype == torch.bfloat16 for g in swa.swa_bwd(
+            *bf, window=32, out=out, lse=lse))
 
     # (B, H, T, C, clip, s0)
     WKV6_GRAD = [(1, 2, 1, 16, False, True), (2, 3, 77, 16, False, False),
@@ -476,14 +523,21 @@ class TestServingKernels:
 
     def test_two_backward_calls_are_bitwise_equal(self):
         """The backward kernels sum in a fixed order (no atomics): the
-        same inputs give the same bits, at hymba's heads and rwkv6's."""
+        same inputs give the same bits, at hymba's heads (swa_bwd's bf16
+        and fp32 routes) and rwkv6's."""
         dev = cuda_device()
         q = seeded((1, 700, 25, 64), 1, dev).bfloat16()
         k, v = (seeded((1, 700, 5, 64), i, dev).bfloat16() for i in (2, 3))
         dout = seeded((1, 700, 25, 64), 4, dev).bfloat16()
-        first = swa.swa_bwd(q, k, v, dout, window=256)
+        out, lse = swa._forward(q, k, v, 256, 0.0, 0, with_lse=True)
+        first = swa.swa_bwd(q, k, v, dout, window=256, out=out, lse=lse)
         assert all(torch.equal(a, b) for a, b in zip(
-            first, swa.swa_bwd(q, k, v, dout, window=256)))
+            first, swa.swa_bwd(q, k, v, dout, window=256, out=out,
+                               lse=lse)))
+        first = swa.swa_bwd(*(x.float() for x in (q, k, v, dout)),
+                            window=256)
+        assert all(torch.equal(a, b) for a, b in zip(first, swa.swa_bwd(
+            *(x.float() for x in (q, k, v, dout)), window=256)))
         r, kk, vv = (seeded((2, 8, 300, 64), i, dev).bfloat16()
                      for i in (5, 6, 7))
         w_log = -torch.exp(seeded((2, 8, 300, 64), 8, dev))
