@@ -55,7 +55,7 @@ SIGNATURES = {
     "repro_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _I, _I, _I, _I, _P),
     "repro_swa_bwd": (_P,) * 13 + (_I,) * 8 + (_F, _F, _I, _P),
-    "repro_wkv6_bwd": (_P,) * 16 + (_I,) * 7 + (_P,),
+    "repro_wkv6_bwd": (_P,) * 18 + (_I,) * 8 + (_P,),
 }
 
 

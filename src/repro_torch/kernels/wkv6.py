@@ -40,23 +40,25 @@ launches the kernels or raises.
 
 The backward. Where autograd needs a gradient of a CUDA input, ``wkv6``
 applies ``_Wkv6Grad``: its forward is the kernels above, whose scratch
-chunk start states it keeps, and its backward is ``wkv6_bwd``, the
-hand-written CUDA kernels of ``csrc/wkv6_bwd.cu`` (fp32, two launches,
-no atomics): a CTA per (b, h, 8 value columns) walks the chunks in
-reverse, recomputes each chunk's 64 per-step states from its start state
-and walks back through them with G = dL/dS_t, every factor a single
-step's decay (<= 1); a second pass sums the column blocks' partial dr,
-dk, dw_log and du. They replace no TPU kernel: the reference takes this
-gradient by JAX's autodiff of ``rwkv.wkv6_chunked``
-(src/repro/models/rwkv.py:80). Bound on the H100: one read of the
-inputs and one write of the gradients; the recurrence's 14 C^2
-operations a step and head, priced as the forward's are (three times
-over on the TF32 tensor cores), take less than that at C = 64.
-``wkv6_bwd_plain`` is its plain version, the
-same walk in fp32. The casts of w_log, u and s0 to fp32 happen outside
-the Function, so their gradients come back in their own dtypes. Under
-``torch.no_grad()``, or when no input needs a gradient, the forward
-launches exactly as before and keeps nothing.
+chunk start states it keeps with its ``chunk`` (the frame of the
+cumulative sums), and its backward is ``wkv6_bwd``, the hand-written CUDA
+kernels of ``csrc/wkv6_bwd.cu``: the forward's chunked algebra run
+backward, chunk by chunk on the tensor cores (split-precision TF32 on
+``mma.sync``, the products' factors per sub-chunk of 16 steps as the
+forward's): each chunk's local dG, a reverse scan of dL/dS over chunks
+(the forward's scan run backward), then each chunk's dk, dv and dr from
+its start state and G_end, dw_log summed over the steps each pair of
+steps spans, and du in a fixed order (five launches, one count, no
+atomics). They replace no TPU kernel: the reference takes this gradient
+by JAX's autodiff of ``rwkv.wkv6_chunked`` (src/repro/models/rwkv.py:80).
+Bound on the H100: one read of the inputs and one write of the
+gradients; the recurrence's 14 C^2 operations a step and head, priced
+as the forward's are (three times over on the TF32 tensor cores), take
+less than that at C = 64. ``wkv6_bwd_plain`` is its plain version, the
+same chunked algorithm in fp32. The casts of w_log, u and s0 to fp32
+happen outside the Function, so their gradients come back in their own
+dtypes. Under ``torch.no_grad()``, or when no input needs a gradient,
+the forward launches exactly as before and keeps nothing.
 """
 from __future__ import annotations
 
@@ -69,7 +71,6 @@ HEAD_SIZES = (16, 64)         # the reduced and the full rwkv6
 MAX_CHUNK = 128
 CHUNK = 64                    # the Pallas kernel's default chunk
 KERNEL_CHUNK = 64             # the CUDA kernels' own chunk (csrc/wkv6.cu)
-BWD_COLUMNS = 8               # value columns a CTA of csrc/wkv6_bwd.cu
 
 
 def wkv6_plain(r, k, v, w_log, u, s0=None, *, chunk: int = CHUNK):
@@ -221,6 +222,7 @@ class _Wkv6Grad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, w_log, u, s0, chunk):
         out, s_t, states = _forward(r, k, v, w_log, u, s0, chunk)
+        ctx.chunk = chunk
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, w_log, u, s0, states)
         return out, s_t
@@ -232,67 +234,148 @@ class _Wkv6Grad(torch.autograd.Function):
         if dout is None:
             dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
         dr, dk, dv, dw, du, ds0 = wkv6_bwd(r, k, v, w_log, u, s0, dout, ds_t,
-                                           states=states)
+                                           states=states, chunk=ctx.chunk)
         return dr, dk, dv, dw, du, None if s0 is None else ds0, None
 
 
-def wkv6_bwd_plain(r, k, v, w_log, u, s0, dout, ds_T):
-    """Plain version of ``wkv6_bwd``, by its kernel's algorithm in fp32:
-    the chunk start states every ``KERNEL_CHUNK`` steps from ``s0`` (None
-    is zero), then the chunks in reverse, each recomputing its per-step
-    states and walking back through them with G = dL/dS_t (``ds_T`` None
-    is zero). Returns (dr, dk, dv) in r's dtype and (dw_log, du, ds0)
-    fp32."""
+def _serial_cumsum(x, frame):
+    """fp32 cumulative sum over dim 2 of (B, H, T, C), added in series and
+    restarted every ``frame`` steps: the order in which the kernels' one
+    thread a column adds, on any device."""
+    b, h, t, c = x.shape
+    m = -(-t // frame)
+    x = torch.nn.functional.pad(x, (0, 0, 0, m * frame - t)).reshape(
+        b, h, m, frame, c)
+    out, acc = torch.empty_like(x), torch.zeros_like(x[:, :, :, 0])
+    for i in range(frame):
+        acc = acc + x[:, :, :, i]
+        out[:, :, :, i] = acc
+    return out.reshape(b, h, m * frame, c)[:, :, :t]
+
+
+def wkv6_bwd_plain(r, k, v, w_log, u, s0, dout, ds_T, *, chunk: int = CHUNK):
+    """Plain version of ``wkv6_bwd``, by its kernels' algorithm in fp32:
+    chunks of ``KERNEL_CHUNK`` steps with the cumulative log-decays of
+    ``cumsum_frame(T, chunk)`` (lp, lp_prev = lp - w_log, base: lp at the
+    step before the chunk in its frame), the chunk start states S_j from
+    ``s0`` (None is zero), the chunks' local dG_j = (R e^{lp_prev -
+    base})^T dO, the reverse scan G_end,j-1 = diag(e^{lp_L,j}) G_end,j +
+    dG_j from ``ds_T`` (None is zero), then inside each chunk, with B =
+    dO V^T and beta = diag(B):
+
+        dr = e^{lp_prev - base} (dO S_j^T) + intra_r + adj_r + u k beta
+        dk = e^{lp_L - lp} (V G_end^T)   + intra_k + adj_k + u r beta
+        dv = A^T dO + (K e^{lp_L - lp}) G_end
+
+    where intra_r, intra_k take the pairs s < t - 1 (B's entries below
+    its subdiagonal, pairwise decays e^{lp_prev_t - lp_s}) and adj_r,
+    adj_k the adjacent pairs s = t - 1. dw_log sums each pair's term
+    over the steps it spans (s < i < t), so a term never enters once
+    through r and leaves once through k: with Y = k e^{lp_L - lp}
+    (V G_end^T), F = k intra_k, P = r (e^{lp_prev - base} (dO S_j^T) +
+    intra_r) and Z = e^{lp_L - base} sum_d S_j G_end,
+
+        dw_i = (Z + sum_{s<i} Y_s) - sum_{s>=i} F_s + sum_{t>i} P_t,
+
+    the adjacent pairs spanning no step. du = sum over b and t of r k
+    beta, ds0 = G_start of chunk 0. Returns (dr, dk, dv) in r's dtype
+    and (dw_log, du, ds0) fp32."""
     b, h, t, c = r.shape
-    rf, kf, vf, do = (x.float() for x in (r, k, v, dout))
-    wd = torch.exp(w_log.float())
-    uf = u.float()
-    zero = torch.zeros((b, h, c, c), dtype=torch.float32, device=r.device)
+    dev = r.device
+    L = KERNEL_CHUNK
+    n = -(-t // L)
+    frame = cumsum_frame(t, chunk)
+    pad = torch.nn.functional.pad
+
+    def blocks(x):
+        return pad(x.float(), (0, 0, 0, n * L - t)).reshape(b, h, n, L, c)
+
+    def expn(x):
+        return torch.exp(torch.clamp(x, max=0.0))
+
+    rr, kk, vv, ww, do = (blocks(x) for x in (r, k, v, w_log, dout))
+    wpad = ww.reshape(b, h, n * L, c)
+    # chunk-local lp (the forward's states) and lp in the frame
+    lp_loc = _serial_cumsum(wpad, L).reshape(b, h, n, L, c)
+    lp = _serial_cumsum(wpad, frame).reshape(b, h, n, L, c)
+    lpp = lp - ww
+    base = torch.zeros_like(lp[:, :, :, 0])
+    if frame == 2 * L:
+        base[:, :, 1::2] = lp_loc[:, :, 0:n - 1:2, -1]
+    last = lp[:, :, :, -1]
+    e_pp = expn(lpp - base[:, :, :, None])              # e^{lp_prev - base}
+    e_k = expn(last[:, :, :, None] - lp)                # e^{lp_L - lp}
+    # the forward's chunk start states
+    zero = torch.zeros((b, h, c, c), dtype=torch.float32, device=dev)
     s = zero if s0 is None else s0.float()
-    g = zero if ds_T is None else ds_T.float()
-    beta = (vf * do).sum(-1)                                   # (B,H,T)
-    a = (rf * uf[None, :, None, :] * kf).sum(-1)               # (B,H,T)
-
-    def step(s, i):
-        return wd[:, :, i, :, None] * s + kf[:, :, i, :, None] \
-            * vf[:, :, i, None, :]
-
+    ds = torch.einsum("bhnsc,bhnsd->bhncd",
+                      kk * expn(lp_loc[:, :, :, -1:] - lp_loc), vv)
     starts = []
-    for i in range(t):
-        if i % KERNEL_CHUNK == 0:
-            starts.append(s)
-        s = step(s, i)
-    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
-    for j in reversed(range(len(starts))):
-        t0 = j * KERNEL_CHUNK
-        hist = [starts[j]]
-        for i in range(t0, min(t, t0 + KERNEL_CHUNK) - 1):
-            hist.append(step(hist[-1], i))
-        for i in reversed(range(t0, t0 + len(hist))):
-            sp = hist[i - t0]
-            ub = uf[None] * beta[:, :, i, None]
-            dr[:, :, i] = torch.einsum("bhcd,bhd->bhc", sp, do[:, :, i]) \
-                + ub * kf[:, :, i]
-            dk[:, :, i] = torch.einsum("bhcd,bhd->bhc", g, vf[:, :, i]) \
-                + ub * rf[:, :, i]
-            dv[:, :, i] = torch.einsum("bhc,bhcd->bhd", kf[:, :, i], g) \
-                + a[:, :, i, None] * do[:, :, i]
-            dw[:, :, i] = wd[:, :, i] * (sp * g).sum(-1)
-            g = wd[:, :, i, :, None] * g + rf[:, :, i, :, None] \
-                * do[:, :, i, None, :]
-    du = (rf * kf * beta[..., None]).sum((0, 2))
+    for j in range(n):
+        starts.append(s)
+        s = expn(lp_loc[:, :, j, -1])[..., None] * s + ds[:, :, j]
+    # the reverse scan of dL/dS over chunks
+    dg = torch.einsum("bhntc,bhntd->bhncd", rr * e_pp, do)
+    g = zero if ds_T is None else ds_T.float()
+    ends = [None] * n
+    for j in reversed(range(n)):
+        ends[j] = g
+        g = expn(last[:, :, j] - base[:, :, j])[..., None] * g + dg[:, :, j]
+    uf = u.float()
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev), -1)
+    far = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev), -2)
+    outs = [[] for _ in range(4)]
+    du = torch.zeros((h, c), dtype=torch.float32, device=dev)
+    for j in range(n):
+        rc, kc, vc, dc = rr[:, :, j], kk[:, :, j], vv[:, :, j], do[:, :, j]
+        sj, ge = starts[j], ends[j]
+        dmat = expn(lpp[:, :, j, :, None] - lp[:, :, j, None])  # (t, s, c)
+        bmat = torch.einsum("bhtd,bhsd->bhts", dc, vc)
+        beta = torch.diagonal(bmat, dim1=2, dim2=3)
+        bsub = torch.diagonal(bmat, offset=-1, dim1=2, dim2=3)  # B[t, t-1]
+        adj = bsub[..., None] * dmat[:, :, 1:, :-1].diagonal(
+            dim1=2, dim2=3).transpose(2, 3)                  # (t-1 rows)
+        bfar = torch.where(far, bmat, 0.0)
+        a = torch.einsum("bhtc,bhsc,bhtsc->bhts", rc, kc, dmat)
+        a = torch.where(tri, a, 0.0) + torch.diag_embed(
+            torch.einsum("bhtc,hc,bhtc->bht", rc, uf, kc))
+        inter_r = e_pp[:, :, j] * torch.einsum("bhtd,bhcd->bhtc", dc, sj)
+        intra_r = torch.einsum("bhts,bhsc,bhtsc->bhtc", bfar, kc, dmat)
+        intra_k = torch.einsum("bhts,bhtc,bhtsc->bhsc", bfar, rc, dmat)
+        state_k = e_k[:, :, j] * torch.einsum("bhsd,bhcd->bhsc", vc, ge)
+        ub = uf[None, :, None] * beta[..., None]
+        dr = inter_r + intra_r + ub * kc
+        dr[:, :, 1:] += adj * kc[:, :, :-1]
+        dk = state_k + intra_k + ub * rc
+        dk[:, :, :-1] += adj * rc[:, :, 1:]
+        dv = torch.einsum("bhts,bhtd->bhsd", a, dc) + torch.einsum(
+            "bhsc,bhcd->bhsd", kc * e_k[:, :, j], ge)
+        z = expn(last[:, :, j] - base[:, :, j]) * (sj * ge).sum(-1)
+        y, f, p = kc * state_k, kc * intra_k, rc * (inter_r + intra_r)
+        before = pad(torch.cumsum(y[:, :, :-1], 2), (0, 0, 1, 0))  # s < i
+        from_i = torch.flip(torch.cumsum(torch.flip(f, (2,)), 2), (2,))
+        after = pad(torch.flip(torch.cumsum(torch.flip(p[:, :, 1:], (2,)),
+                                            2), (2,)), (0, 0, 0, 1))  # t > i
+        dw = (z[:, :, None] + before) - from_i + after
+        du += (rc * kc * beta[..., None]).sum((0, 2))
+        for acc, x in zip(outs, (dr, dk, dv, dw)):
+            acc.append(x)
+    dr, dk, dv, dw = (torch.stack(x, 2).reshape(b, h, n * L, c)[:, :, :t]
+                      for x in outs)
     return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw, du, g
 
 
-def wkv6_bwd(r, k, v, w_log, u, s0, dout, ds_T, *, states):
+def wkv6_bwd(r, k, v, w_log, u, s0, dout, ds_T, *, states,
+             chunk: int = CHUNK):
     """(dr, dk, dv, dw_log, du, ds0) of ``wkv6`` for the cotangents ``dout``
     of out and ``ds_T`` of s_T (None: zero): the CUDA kernels of
-    ``csrc/wkv6_bwd.cu`` for CUDA tensors (two launches, one count),
+    ``csrc/wkv6_bwd.cu`` for CUDA tensors (five launches, one count),
     ``wkv6_bwd_plain`` for CPU tensors. ``states`` is the forward's chunk
     start states (``_forward``'s third output), which the kernels need;
-    the plain version recomputes them and takes None. dr, dk, dv in r's
-    dtype, the rest fp32."""
-    _check(r, k, v, w_log, u, s0, CHUNK)
+    the plain version recomputes them and takes None. ``chunk`` is the
+    forward's, whose frame (``cumsum_frame``) both sum their cumulative
+    log-decays over. dr, dk, dv in r's dtype, the rest fp32."""
+    _check(r, k, v, w_log, u, s0, chunk)
     ins = [x for x in (r, k, v, w_log, u, s0, dout, ds_T) if x is not None]
     if dout.shape != r.shape or (ds_T is not None
                                  and ds_T.shape != (*r.shape[:2],
@@ -301,7 +384,7 @@ def wkv6_bwd(r, k, v, w_log, u, s0, dout, ds_T, *, states):
                          f"(B,H,C,C), got {tuple(dout.shape)}, "
                          f"{None if ds_T is None else tuple(ds_T.shape)}")
     if all(x.device.type == "cpu" for x in ins):
-        return wkv6_bwd_plain(r, k, v, w_log, u, s0, dout, ds_T)
+        return wkv6_bwd_plain(r, k, v, w_log, u, s0, dout, ds_T, chunk=chunk)
     _check_cuda(r, k, v, ins)
     dev = r.device
     b, h, t, c = r.shape
@@ -320,26 +403,29 @@ def wkv6_bwd(r, k, v, w_log, u, s0, dout, ds_T, *, states):
         raise ValueError(f"wkv6_bwd takes the forward's states "
                          f"{(b, h, n, c, c)}, got "
                          f"{None if states is None else tuple(states.shape)}")
-    r, k, v = (x.contiguous() for x in (r, k, v))
-    w_log, u = w_log.contiguous(), u.contiguous()
-    dout = dout.to(torch.float32).contiguous()
-    ds_t = None if ds_T is None else ds_T.to(torch.float32).contiguous()
+    r, k, v = (build.aligned(x) for x in (r, k, v))
+    w_log, u = build.aligned(w_log), build.aligned(u)
+    dout = build.aligned(dout.to(torch.float32))
+    ds_t = (torch.zeros((b, h, c, c), dtype=torch.float32, device=dev)
+            if ds_T is None else build.aligned(ds_T.to(torch.float32)))
     dr, dk, dv = (torch.empty((b, h, t, c), dtype=r.dtype, device=dev)
                   for _ in range(3))
     dw = torch.empty((b, h, t, c), dtype=torch.float32, device=dev)
     du = torch.empty((h, c), dtype=torch.float32, device=dev)
     ds0 = torch.empty((b, h, c, c), dtype=torch.float32, device=dev)
-    nb = c // BWD_COLUMNS
-    part = torch.empty((3, nb, b, h, t, c), dtype=torch.float32, device=dev)
-    du_part = torch.empty((nb, b, h, c), dtype=torch.float32, device=dev)
+    # scratch: each chunk's dG, then its G_end; its decay, its Z and its
+    # part of du
+    dg = torch.empty((b, h, n, c, c), dtype=torch.float32, device=dev)
+    lpe, zs, du_part = (torch.empty((b, h, n, c), dtype=torch.float32,
+                                    device=dev) for _ in range(3))
     lib = build.load()
     code = lib.repro_wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
-        u.data_ptr(), dout.data_ptr(),
-        None if ds_t is None else ds_t.data_ptr(),
-        states.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), part.data_ptr(),
-        du_part.data_ptr(), _DTYPES[r.dtype], b, h, t, c, n, dev.index,
+        u.data_ptr(), dout.data_ptr(), ds_t.data_ptr(), states.data_ptr(),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+        du.data_ptr(), ds0.data_ptr(), dg.data_ptr(), lpe.data_ptr(),
+        zs.data_ptr(), du_part.data_ptr(), _DTYPES[r.dtype], b, h, t, c, n,
+        cumsum_frame(t, chunk), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     build.count_launch(wkv6_bwd)
     build.check(code, "wkv6_bwd")

@@ -226,10 +226,16 @@ def test_cumsum_frame_holds_the_clip(kw, lo, hi):
 
 def test_chunk_sizes_match_the_source():
     """The wrapper sizes the kernels' scratch with KERNEL_CHUNK; the mirror
-    takes SUB; csrc/wkv6.cu has its own L and SUB."""
-    src = (Path(wkv6.__file__).parents[1] / "csrc" / "wkv6.cu").read_text()
+    takes SUB; the forward and backward kernels (csrc/wkv6.cu,
+    csrc/wkv6_bwd.cu) take their L and SUB from csrc/wkv6_common.cuh."""
+    csrc = Path(wkv6.__file__).parents[1] / "csrc"
+    src = (csrc / "wkv6_common.cuh").read_text()
     consts = dict(re.findall(r"constexpr int (L|SUB) = (\d+);", src))
     assert consts == {"L": str(KERNEL_CHUNK), "SUB": str(SUB)}
+    for name in ("wkv6.cu", "wkv6_bwd.cu"):
+        text = (csrc / name).read_text()
+        assert '#include "wkv6_common.cuh"' in text
+        assert not re.findall(r"constexpr int (L|SUB) = ", text)
 
 
 @pytest.mark.parametrize("t,chunk,frame", [
