@@ -254,6 +254,12 @@ def kernel_times(torch, fn, *, reps: int = 10) -> dict:
     """Mean device time of one call of ``fn`` by kernel name (ms): the
     kernels it launched, as ``torch.profiler`` records them, over ``reps``
     calls (host time, such as a ctypes wrapper's, is not in it)."""
+    return {k: ms for k, (_, ms) in kernel_calls(torch, fn, reps=reps).items()}
+
+
+def kernel_calls(torch, fn, *, reps: int = 10) -> dict:
+    """{kernel name: (launches a call, device ms a call)} of ``fn`` under
+    ``torch.profiler``, over ``reps`` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -269,7 +275,8 @@ def kernel_times(torch, fn, *, reps: int = 10) -> dict:
         kern = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         if kern:
-            return {e.key: e.self_device_time_total / 1e3 / reps
+            return {e.key: (e.count / reps,
+                            e.self_device_time_total / 1e3 / reps)
                     for e in kern}
     raise NoDeviceRecords("torch.profiler recorded no device kernel in three "
                           "sessions")
@@ -431,7 +438,11 @@ def phase_fedagg(torch, dev, kinfo):
 
 def phase_planner(torch, dev, kinfo):
     """The planner kernel against its plain version: the bf16 table within
-    one bf16 ulp elementwise, row_min and t_sw to rtol 1e-6."""
+    one bf16 ulp elementwise, row_min and t_sw to rtol 1e-6, two calls
+    bitwise equal; then timed, NOMA and OMA, at the path's shapes: the FL
+    round (1, 10), the Monte-Carlo rollout (32, 10), the policy batch
+    (64, 32) and the engine cell (64, 256), with the kernels that
+    ``torch.profiler`` records in one call (one launch a call)."""
     from repro_torch.kernels import planner as PL
     kw = dict(n0b=1e-14, pmax=0.2, bw=1e6)
 
@@ -442,39 +453,61 @@ def phase_planner(torch, dev, kinfo):
         t = torch.rand((b, c), generator=gen, device=dev) * 0.45 + 0.05
         return g, t, torch.full((b,), 4e6, device=dev)
 
+    def bits(x):
+        return x.view(torch.int16 if x.dtype == torch.bfloat16
+                      else torch.int32)
+
     errs = {}
-    shapes = [(1, 10), (32, 10), (64, 256)] + [(3, c) for c in
-                                               (1, 2, 3, 7, 129)]
+    shapes = [(1, 10), (32, 10), (64, 32), (64, 256), (4, 1030)] + [
+        (3, c) for c in (1, 2, 3, 7, 129)]
     for b, c in shapes:
         for oma in (False, True):
             g, t, mb = inputs(b, c, b * 1000 + c)
             out = PL.planner_tables(g, t, mb, oma=oma, **kw)
+            again = PL.planner_tables(g, t, mb, oma=oma, **kw)
             ref = PL.planner_tables_plain(g, t, mb, oma=oma, **kw)
             torch.cuda.synchronize()
             torch.testing.assert_close(out[0].float(), ref[0].float(),
                                        rtol=BF16_ULP, atol=0.0)
             torch.testing.assert_close(out[1], ref[1], rtol=1e-6, atol=0.0)
             torch.testing.assert_close(out[2], ref[2], rtol=1e-6, atol=0.0)
+            if not all(torch.equal(bits(x), bits(y))
+                       for x, y in zip(out, again)):
+                raise AssertionError(f"planner ({b}, {c}), oma={oma}: two "
+                                     f"calls differ")
             errs[f"({b}, {c}){'/oma' if oma else ''}"] = max_err(
                 torch, [out[0], out[1][torch.isfinite(out[1])], out[2]],
                 [ref[0], ref[1][torch.isfinite(ref[1])], ref[2]])
     log(f"planner agrees with its plain version (table 1 bf16 ulp, "
-        f"row_min/t_sw rtol 1e-6): {errs}")
+        f"row_min/t_sw rtol 1e-6), two calls bitwise equal: {errs}")
     timings = {}
     for name, (b, c) in (("fl", (1, 10)), ("montecarlo", (32, 10)),
-                         ("k128", (64, 256))):
+                         ("policies", (64, 32)), ("k128", (64, 256))):
         g, t, mb = inputs(b, c, 7)
-        b_ms, b_by = bound(b * (8 * c + 4) + 2 * b * c * c + 4 * b * c
-                           + 4 * b, PLANNER_OPS * b * c * c)
-        timings[name] = dict(
-            shape=[b, c],
-            ms=time_ms(torch, lambda: PL.planner_tables(g, t, mb, **kw)),
-            device_ms=device_ms(torch, lambda: PL.planner_tables(
-                g, t, mb, **kw)),
-            plain_ms=time_ms(torch, lambda: PL.planner_tables_plain(
-                g, t, mb, **kw)),
-            bound_ms=b_ms, bound_by=b_by)
-        log(f"planner ({b}, {c}): {timings[name]}")
+        for oma in (False, True):
+            call = lambda: PL.planner_tables(g, t, mb, oma=oma, **kw)
+            # OMA: one rate and v a candidate, then one max a pair
+            ops = (PLANNER_OPS * b * c + b * c * c if oma
+                   else PLANNER_OPS * b * c * c)
+            b_ms, b_by = bound(b * (8 * c + 4) + 2 * b * c * c + 4 * b * c
+                               + 4 * b, ops)
+            # the one-launch claim: a profiler with no device records
+            # (NoDeviceRecords) fails the phase
+            kernels = kernel_calls(torch, call)
+            dev_ms = sum(ms for _, ms in kernels.values())
+            if sum(n for n, _ in kernels.values()) != 1:
+                raise AssertionError(f"planner ({b}, {c}): {kernels} device "
+                                     f"kernels a call, not one")
+            key = name + ("_oma" if oma else "")
+            timings[key] = dict(
+                shape=[b, c], oma=oma, ms=time_ms(torch, call),
+                device_ms=dev_ms,
+                plain_ms=time_ms(torch, lambda: PL.planner_tables_plain(
+                    g, t, mb, oma=oma, **kw)),
+                bound_ms=b_ms, bound_by=b_by,
+                kernels_a_call={k: n for k, (n, _) in kernels.items()})
+            log(f"planner ({b}, {c}){' OMA' if oma else ''}: "
+                f"{timings[key]}")
     fl = timings["fl"]
     kinfo["planner"] = dict(
         max_abs_err=max(errs[k] for k in ("(1, 10)", "(1, 10)/oma")),
@@ -482,8 +515,7 @@ def phase_planner(torch, dev, kinfo):
         library_ms=None, library_device_ms=None,
         bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
         tolerance="table 1 bf16 ulp (rtol 2^-7); row_min, t_sw rtol 1e-6",
-        shape=fl["shape"], at_montecarlo_shape=timings["montecarlo"],
-        at_k128_shape=timings["k128"], errors=errs)
+        shape=fl["shape"], shapes=timings, errors=errs)
 
 
 def bf16_ulp(x) -> float:

@@ -17,7 +17,9 @@
 // in the expression order of the reference, so the fp32 results track the
 // plain PyTorch version and the JAX twin. `y*` depends on the strong gain
 // alone, so a caller that sweeps one strong user against many weak ones
-// computes it once (`strong_root`) and passes it to `pair_from_root`.
+// computes it once (`strong_root`) and passes it to `pair_from_root`, or
+// with p_i g_i to `noma_from_strong`; an OMA rate depends on one gain
+// (`oma_rate`).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,24 +56,33 @@ static __device__ __forceinline__ float strong_root(float g_i,
   return __fdiv_rn(num, __fadd_rn(k.n0b, __fsqrt_rn(disc)));
 }
 
+// R of a user alone at full power on half the bandwidth (OMA): both users
+// of an OMA pair take it, each from its own gain.
+static __device__ __forceinline__ float oma_rate(float g,
+                                                 const PairConsts& k) {
+  return rate(k.half_bw, __fdiv_rn(__fmul_rn(k.pmax, g), k.n0b), k.ln2);
+}
+
+// The NOMA pair from what depends on the strong user alone, its root
+// y*(g_i) and p_i g_i = fp32(P g_i), and the weak gain g_j.
+static __device__ __forceinline__ PairOut noma_from_strong(
+    float y, float pig, float g_j, const PairConsts& k) {
+  PairOut o;
+  o.p_j = fminf(__fdiv_rn(y, fmaxf(g_j, k.tiny)), k.pmax);
+  o.p_i = k.pmax;
+  const float pjgj = __fmul_rn(o.p_j, g_j);
+  o.r_i = rate(k.bw, __fdiv_rn(pig, __fadd_rn(pjgj, k.n0b)), k.ln2);
+  o.r_j = rate(k.bw, __fdiv_rn(pjgj, k.n0b), k.ln2);
+  return o;
+}
+
 static __device__ __forceinline__ PairOut pair_from_root(float y, float g_i,
                                                          float g_j,
                                                          const PairConsts& k,
                                                          int oma) {
-  PairOut o;
-  if (oma) {
-    o.p_i = k.pmax;
-    o.p_j = k.pmax;
-    o.r_i = rate(k.half_bw, __fdiv_rn(__fmul_rn(k.pmax, g_i), k.n0b), k.ln2);
-    o.r_j = rate(k.half_bw, __fdiv_rn(__fmul_rn(k.pmax, g_j), k.n0b), k.ln2);
-  } else {
-    o.p_j = fminf(__fdiv_rn(y, fmaxf(g_j, k.tiny)), k.pmax);
-    o.p_i = k.pmax;
-    const float interf = __fadd_rn(__fmul_rn(o.p_j, g_j), k.n0b);
-    o.r_i = rate(k.bw, __fdiv_rn(__fmul_rn(o.p_i, g_i), interf), k.ln2);
-    o.r_j = rate(k.bw, __fdiv_rn(__fmul_rn(o.p_j, g_j), k.n0b), k.ln2);
-  }
-  return o;
+  if (oma)
+    return PairOut{k.pmax, k.pmax, oma_rate(g_i, k), oma_rate(g_j, k)};
+  return noma_from_strong(y, __fmul_rn(k.pmax, g_i), g_j, k);
 }
 
 static __device__ __forceinline__ PairOut pair_math(float g_i, float g_j,

@@ -48,8 +48,8 @@ SIGNATURES = {
     "repro_pairscore": (_P, _P, _P, _P, _P, _P, _L,
                         _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P),
     "repro_fedagg": (_P, _I, _I, _L, _P, _P, _I, _L, _I, _P),
-    "repro_planner": (_P, _P, _P, _P, _P, _P, _P, _L, _I,
-                      _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P),
+    "repro_planner": (_P, _L, _P, _L, _P, _L, _P, _P, _P, _L, _I, _P, _I,
+                      _I, _P),
     "repro_swa": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                   _F, _I, _P),
     "repro_wkv6": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -12,10 +12,15 @@ weak:
 ``csrc/planner.cu``, which replaces the TPU kernel ``_planner_kernel``
 (src/repro/kernels/planner.py:47). Bound on the H100: it moves
 B (8c + 4) + 2 B c^2 + 4 B c + 4 B bytes against B c^2 pair evaluations of
-about 30 fp32 operations each; by those counts the bytes bound it, but the
-pair math is SFU-heavy (log1p, IEEE divides), so the kernel hoists the
-strong user's root out of the column loop and gives each row one warp (see
-the source's note).
+about 30 fp32 operations each; by those counts the bytes bound it, but
+under NOMA each pair runs seven IEEE divides and two log1p, so the
+instruction issue does. One launch a call: t_sw is reduced in the kernel
+(for c > 32 by each batch row's first CTA, from the anti-diagonal it
+computes again); what depends on one index is computed once a row or a
+column; OMA's table is max(v_p, v_q) (see the source's note). The
+wrapper allocates each output once, in its final shape, converts the
+constants once for each (n0b, pmax, bw), and takes rows with unit column
+stride without a copy.
 
 ``planner_tables_plain`` is the plain PyTorch version: ``pair_math`` on
 broadcast (c, c) grids, the reductions from fp32, and the bf16 cast last
@@ -24,6 +29,8 @@ only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -73,11 +80,38 @@ def planner_tables_plain(g_sorted, t_cmp_sorted, model_bits, *, n0b: float,
     return comp.to(torch.bfloat16), row_min, t_sw
 
 
+class PlannerConsts(ctypes.Structure):
+    """The fp32 constants of a call, as ``struct PlannerConsts`` of
+    ``csrc/planner.cu`` lays them out."""
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "two_pmax", "four_pmax", "pmax", "n0b", "n0b_sq", "bw", "half_bw",
+        "ln2", "tiny", "eps")]
+
+
+@functools.lru_cache(maxsize=64)
+def _consts(n0b: float, pmax: float, bw: float):
+    """The fp32 constants of (n0b, pmax, bw), each rounded to fp32 as JAX
+    rounds them, and their address (the cache keeps them alive)."""
+    consts = PlannerConsts(2.0 * pmax, 4.0 * pmax, pmax, n0b, n0b * n0b, bw,
+                           0.5 * bw, LN2, 1e-30, EPS)
+    return consts, ctypes.addressof(consts)
+
+
+def _rows(x, batch: int, c: int):
+    """``x`` as (batch, c) rows with unit column stride, and its row stride:
+    no copy where ``x`` has them, as the engine's column slices do."""
+    if x.dim() != 2:
+        x = x.reshape(batch, c)
+    if x.stride(1) != 1:
+        x = x.contiguous()
+    return x, x.stride(0)
+
+
 def planner_tables(g_sorted, t_cmp_sorted, model_bits, *, n0b: float,
                    pmax: float, bw: float, oma: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused (table, row_min, t_sw): the CUDA kernel for CUDA tensors,
-    ``planner_tables_plain`` for CPU tensors. ``g_sorted`` and
+    """Fused (table, row_min, t_sw): the CUDA kernel (one launch) for CUDA
+    tensors, ``planner_tables_plain`` for CPU tensors. ``g_sorted`` and
     ``t_cmp_sorted`` are (..., c) fp32 on one device."""
     dev = g_sorted.device
     if dev.type == "cpu" and t_cmp_sorted.device.type == "cpu":
@@ -90,31 +124,23 @@ def planner_tables(g_sorted, t_cmp_sorted, model_bits, *, n0b: float,
             or t_cmp_sorted.dtype != torch.float32:
         raise ValueError("planner_tables takes fp32 gains and times")
     lead, c, mb = _prepare(g_sorted, t_cmp_sorted, model_bits)
-    batch = int(np.prod(lead, dtype=np.int64))
-    g = g_sorted.reshape(batch, c).contiguous()
-    t = t_cmp_sorted.reshape(batch, c).contiguous()
-    mb = mb.reshape(batch).contiguous()
-    table = torch.empty((batch, c, c), dtype=torch.bfloat16, device=dev)
-    row_min = torch.empty((batch, c), dtype=torch.float32, device=dev)
-    t_sw = torch.empty((batch,), dtype=torch.float32, device=dev)
+    table = torch.empty((*lead, c, c), dtype=torch.bfloat16, device=dev)
+    row_min = torch.empty((*lead, c), dtype=torch.float32, device=dev)
+    t_sw = torch.empty(lead, dtype=torch.float32, device=dev)
+    batch = t_sw.numel()
     if batch == 0 or c == 0:
-        return (table.reshape(*lead, c, c), row_min.reshape(*lead, c),
-                torch.zeros(lead, dtype=torch.float32, device=dev))
-    anti = torch.empty((batch, max(c // 2, 1)), dtype=torch.float32,
-                       device=dev)
-    f32 = lambda v: float(np.float32(v))   # the fp32 constant JAX uses
-    lib = build.load()
-    code = lib.repro_planner(
-        g.data_ptr(), t.data_ptr(), mb.data_ptr(), table.data_ptr(),
-        row_min.data_ptr(), t_sw.data_ptr(), anti.data_ptr(), batch, c,
-        f32(2.0 * pmax), f32(4.0 * pmax), f32(pmax), f32(n0b),
-        f32(n0b * n0b), f32(bw), f32(0.5 * bw), f32(LN2), f32(1e-30),
-        f32(EPS), int(oma), dev.index,
+        return table, row_min, t_sw.zero_()
+    g, ldg = _rows(g_sorted, batch, c)
+    t, ldt = _rows(t_cmp_sorted, batch, c)
+    mb = mb.reshape(batch)  # a scalar S stays a stride-0 view
+    code = build.load().repro_planner(
+        g.data_ptr(), ldg, t.data_ptr(), ldt, mb.data_ptr(), mb.stride(0),
+        table.data_ptr(), row_min.data_ptr(), t_sw.data_ptr(), batch, c,
+        _consts(n0b, pmax, bw)[1], int(oma), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     build.count_launch(planner_tables)
     build.check(code, "planner")
-    return (table.reshape(*lead, c, c), row_min.reshape(*lead, c),
-            t_sw.reshape(lead))
+    return table, row_min, t_sw
 
 
 planner_tables.launches = 0

@@ -122,16 +122,21 @@ class TestOnCard:
             rtol=1e-5, atol=1e-6)
 
     @pytest.mark.parametrize("oma", [False, True])
-    @pytest.mark.parametrize("b,c", [(1, 10), (32, 10), (64, 256), (3, 1),
-                                     (3, 2), (3, 3), (3, 7), (3, 129)])
+    @pytest.mark.parametrize("b,c", [(1, 10), (32, 10), (64, 32), (64, 256),
+                                     (4, 1030), (1, 16385), (3, 1), (3, 2),
+                                     (3, 3), (3, 7), (3, 129)])
     def test_planner(self, b, c, oma):
         """The bf16 table within one bf16 ulp; row_min and t_sw, reduced
-        from fp32, to rtol 1e-6."""
+        from fp32, to rtol 1e-6; a second call bitwise equal. (64, 32) is
+        the policy batch's shape; (4, 1030) runs ``planner_rows`` with c
+        not a multiple of 32 and a last CTA of fewer rows; (1, 16385) its
+        unstaged route, past 128 KB of staged g and t, at an odd c."""
         dev = cuda_device()
         g, t, mb = planner_inputs(b, c, b + c, dev)
         before = planner.planner_tables.launches
         out = planner.planner_tables(g, t, mb, oma=oma, **KW)
         assert planner.planner_tables.launches == before + 1
+        again = planner.planner_tables(g, t, mb, oma=oma, **KW)
         ref = planner.planner_tables_plain(g, t, mb, oma=oma, **KW)
         torch.cuda.synchronize()
         assert out[0].dtype == torch.bfloat16
@@ -139,6 +144,42 @@ class TestOnCard:
                                    rtol=BF16_ULP, atol=0.0)
         torch.testing.assert_close(out[1], ref[1], rtol=1e-6, atol=0.0)
         torch.testing.assert_close(out[2], ref[2], rtol=1e-6, atol=0.0)
+        for x, y in zip(out, again):
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+
+    @pytest.mark.parametrize("oma", [False, True])
+    @pytest.mark.parametrize("b,c", [(1, 10), (64, 256)])
+    def test_planner_one_kernel_a_call(self, b, c, oma):
+        """A call is one device kernel (no second t_sw pass), as
+        ``torch.profiler`` counts the kernels of five calls."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        dev = cuda_device()
+        g, t, mb = planner_inputs(b, c, 3, dev)
+        planner.planner_tables(g, t, mb, oma=oma, **KW)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                planner.planner_tables(g, t, mb, oma=oma, **KW)
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+        assert sum(kernels.values()) == 5, kernels
+        assert all("planner" in k for k in kernels), kernels
+
+    def test_planner_strided_rows_and_scalar_bits(self):
+        """The engine's (B, c_pair) slice of (B, c) rows goes in without a
+        copy, and S as one number (a stride-0 view) equals S as a row
+        tensor bit for bit."""
+        dev = cuda_device()
+        g, t, mb = planner_inputs(8, 33, 4, dev)
+        gs, ts = g[:, :32], t[:, :32]
+        out = planner.planner_tables(gs, ts, 4e6, **KW)
+        ref = planner.planner_tables(gs.contiguous(), ts.contiguous(), mb,
+                                     **KW)
+        for x, y in zip(out, ref):
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
 
     def test_hungarian_and_montecarlo_launch_the_planner(self):
         """The engine's hungarian finish takes its table from the planner

@@ -5,7 +5,9 @@ against the reference package's XLA twins and its Pallas kernels in
 interpret mode, on the same numpy inputs. The CUDA kernels themselves run
 only on a card: tests/test_torch_cuda.py holds them.
 """
+import ctypes
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -31,6 +33,14 @@ def gains(m, seed, *, shape=None):
     if shape is not None:
         g_i, g_j = g_i.reshape(shape), g_j.reshape(shape)
     return g_i, g_j
+
+
+def c_params(name):
+    """Parameters of ``extern "C" int name(...)`` in csrc/*.cu, as text."""
+    found = [m for src in build.sources() for m in re.finditer(
+        r'extern "C" int ' + name + r"\(([^)]*)\)", src.read_text())]
+    assert len(found) == 1, f"{name}: {len(found)} definitions"
+    return [p.strip() for p in found[0][1].split(",")]
 
 
 def updates(c, n, seed):
@@ -181,3 +191,28 @@ class TestBuild:
             "swa_bwd.cu", "wkv6.cu", "wkv6_bwd.cu"}
         assert "--use_fast_math" not in build.NVCC_FLAGS
         assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+    @pytest.mark.parametrize("name", sorted(build.SIGNATURES))
+    def test_ctypes_signature_matches_source(self, name):
+        """``build.SIGNATURES[name]`` has the parameters, in number and kind
+        (pointer, int64_t, int, float), of ``extern "C" int name(...)`` in
+        csrc: a mismatch would show only as a crash on the card."""
+        params = c_params(name)
+        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int64
+                 if "int64_t" in p else ctypes.c_float if "float" in p
+                 else ctypes.c_int for p in params]
+        assert len(params) == len(build.SIGNATURES[name]), params
+        assert kinds == list(build.SIGNATURES[name]), params
+
+    def test_planner_consts_match_the_struct(self):
+        """``planner.PlannerConsts`` lays out ``struct PlannerConsts`` of
+        csrc/planner.cu: the same float fields in the same order."""
+        from repro_torch.kernels import planner
+        src = (build.CSRC / "planner.cu").read_text()
+        body = re.search(r"struct PlannerConsts \{(.*?)\};", src, re.S)[1]
+        fields = [f.strip() for f in body.replace("float", "").replace(
+            ";", ",").split(",") if f.strip()]
+        assert body.split()[0] == "float" and body.count("float") == 1
+        assert fields == [f for f, _ in planner.PlannerConsts._fields_]
+        assert all(t is ctypes.c_float
+                   for _, t in planner.PlannerConsts._fields_)
