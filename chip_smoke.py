@@ -137,7 +137,22 @@ Phases, each fatal on failure:
      reduced, 3 rounds, card against CPU from one CPU draw of the weights:
      at the CLI's lr 0.3 within 4x the gap of the same round on the card
      through the plain versions (the card's rounding, amplified), and
-     at lr 3e-4 within phase 15a's tiers.
+     at lr 3e-4 within phase 15a's tiers;
+ 24. the dry-run tools (launch/dryrun.py): ``dryrun_one`` on a one-rank
+     host mesh (a fake world of 1) traces the train step of
+     stablelm_1_6b at phase 22's (B=8, S=2048, 4 microbatches) and of
+     hymba_1_5b and rwkv6_7b at phase 23's (B=2, S=4096, 2 microbatches)
+     on the fake card; one real step of each on the card under the same
+     ``FlopCounterMode`` and ``OpBytesMode`` gives the same FLOPs and op
+     bytes, exactly (hymba's and rwkv6's count swa, swa_bwd, wkv6 and
+     wkv6_bwd through their ``repro_torch::`` ops' formulas), its peak
+     within a factor 2 of the predicted argument + temp bytes; the FLOPs
+     over phase 22's and 23's s a step as a share of the bf16 peak;
+     ``python -m repro_torch.launch.dryrun --arch smollm_135m --shape
+     train_4k`` in a subprocess (the fake 256-rank group and mesh on the
+     fake card); ``layers.ring_flash_attention`` on a one-rank NCCL group
+     against ``flash_attention``, fp32, within 1e-5, at the reference
+     test's shape, and reduced smollm's ring prefill against its prefill.
 Phases 6a, 7, 8 (each FL path), 9 (run_serve), 10 (the T=4096 prefill),
 14, 15b, 16, 17, 20 and 21 (each serve and windowed prefill), 19 and 22
 (each prefill and the full-width train step), 22's reduced steps and 23
@@ -145,7 +160,7 @@ Phases 6a, 7, 8 (each FL path), 9 (run_serve), 10 (the T=4096 prefill),
 to 0 just before and read it just after.
 The run ledgers go to a temporary directory (``REPRO_RUNS_DIR``), removed
 at the end. The phases run in the order 1-5, 6a, 6b, 11-13, 6, 7, 8, 14,
-15, 9, 10, 16-23.
+15, 9, 10, 16-24.
 
 With ``--profile`` it then times the stages of one more FL round and
 traces another with ``torch.profiler``, and traces one prefill and one
@@ -544,10 +559,10 @@ SWA_ROW_ULPS = {"bfloat16": 2.0, "float32": 1.0}
 
 def swa_pairs(s: int, w: int, p: int = 0) -> int:
     """(query, key) pairs of a causal band of width w over s positions,
-    with the prefix-LM band's extra pairs (keys j < p above the diagonal:
-    j > i, within the window since j > i)."""
-    q = min(p, s)
-    return sum(min(i + 1, w) for i in range(s)) + q * (q - 1) // 2
+    with the prefix-LM band's extra pairs (``kernels.swa.band_pairs``,
+    which the swa ops' FLOP formulas count)."""
+    from repro_torch.kernels.swa import band_pairs
+    return band_pairs(s, w, p)
 
 
 def phase_swa(torch, dev, kinfo):
@@ -3533,6 +3548,183 @@ def phase_kernel_train(torch, dev, profile: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 24: the dry-run tools on the card
+# ---------------------------------------------------------------------------
+
+# arch -> (B, S, microbatches): phase 22's and 23's train steps
+DRYRUN_CARD = {TRAIN_ARCH: (TRAIN_B, TRAIN_S, TRAIN_MICRO), **KERNEL_TRAIN}
+# the custom ops each family's step must count through their formulas
+DRYRUN_OPS = {"hybrid": ("repro_torch.swa_fwd", "repro_torch.swa_bwd"),
+              "ssm": ("repro_torch.wkv6_fwd", "repro_torch.wkv6_bwd")}
+PREDICTION_FACTOR = 2.0       # predicted argument + temp bytes against peak
+
+
+def counted_step(torch, dev, arch: str, b: int, s: int, micro: int) -> dict:
+    """One real train step of ``arch`` whole on the card (the dry run's
+    step: ``make_train_step(lr=1e-3, microbatches, remat)``, int32 tokens
+    and labels as ``zoo.batch_shapes`` has them) under FlopCounterMode and
+    OpBytesMode: its FLOPs by op, op bytes and peak allocated bytes."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import zoo
+    cfg = get_config(arch)
+    model = zoo.init_model(cfg, seed=0, device=dev)
+    step = zoo.make_train_step(cfg, lr=1e-3, microbatches=micro)
+    batch = {k: v.to(torch.int32) if k in ("tokens", "labels") else v
+             for k, v in train_batch(torch, dev, cfg, b, s, 8).items()}
+    release(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fc, ob = FlopCounterMode(display=False), RL.OpBytesMode()
+    t0 = time.perf_counter()
+    with fc, ob:
+        m = step(model, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = dict(flops=fc.get_total_flops(), op_bytes=ob.total,
+               by_op={str(k): v for k, v in
+                      fc.get_flop_counts()["Global"].items()},
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               counted_step_s=secs, loss=float(m["loss"]))
+    if not math.isfinite(out["loss"]):
+        raise AssertionError(f"{arch} counted step: loss {out['loss']}")
+    del model, step, batch, m
+    release(torch)
+    return out
+
+
+def ring_on_card(torch, dev) -> dict:
+    """``ring_flash_attention`` on a one-rank NCCL group ((1, 1) mesh)
+    against ``flash_attention`` in fp32 at the reference test's shape
+    (reduced llama4 with 5 heads, 1 KV head, hd 16; B=4, S=64), and
+    reduced smollm's ring prefill (its last logits all-gathered over the
+    sequence group) against its prefill; the group is torn down after."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import zoo
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(
+            get_config("llama4_maverick_400b_a17b").reduced(), n_heads=5,
+            n_kv_heads=1, head_dim=16)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q, k, v = (torch.randn((4, 64, h, 16), generator=gen, device=dev)
+                   for h in (5, 1, 1))
+        ring = L.Ring(mesh, "data", "model")
+        spec = ("batch", "seq", None, None)
+        got = L.ring_flash_attention(
+            *(ring.shard(t, spec) for t in (q, k, v)), cfg, mesh,
+            batch_axis="data", seq_axis="model").full_tensor()
+        err = float((got - L.flash_attention(q, k, v, cfg)).abs().max())
+        small = get_config("smollm_135m").reduced()
+        model = zoo.init_model(small, seed=1, device=dev)
+        batch = model_inputs(torch, dev, small, 64, 9, batch=4)
+        want, cache = zoo.make_prefill_step(small)(model, batch)
+        logits, rcache = zoo.make_prefill_step(
+            small, ring=(mesh, "data", "model"))(model, batch)
+        scale = max(1.0, float(want.abs().max()))
+        prefill_err = float((logits.full_tensor() - want).abs().max())
+        cache_err = max(float((rcache[n].full_tensor().float()
+                               - c.float()).abs().max()) for n, c in
+                        cache.items())
+    finally:
+        dist.destroy_process_group()
+    if not (err <= 1e-5 and prefill_err <= 1e-5 * scale
+            and cache_err <= 1e-5 * scale):
+        raise AssertionError(f"ring on the card: attention err {err}, "
+                             f"prefill {prefill_err}, cache {cache_err} "
+                             f"(tol 1e-5, x {scale} for the prefill)")
+    return dict(attention_max_abs_err=err, prefill_max_abs_err=prefill_err,
+                cache_max_abs_err=cache_err, tolerance=1e-5,
+                prefill_scale=scale, backend="nccl", world_size=1)
+
+
+def production_dryrun(torch) -> dict:
+    """``python -m repro_torch.launch.dryrun --arch smollm_135m --shape
+    train_4k`` in a subprocess: the fake 256-rank group, its (16, 16)
+    mesh and the FLOP formulas on the fake card. Returns its record and
+    its printed line."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "smollm_135m", "--shape", "train_4k", "--out", out],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env=os.environ | {"PYTHONPATH": str(ROOT / "src")})
+        if proc.returncode != 0:
+            raise AssertionError(f"the production dry run exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        rec = json.loads((Path(out) / "smollm_135m__train_4k__single.json")
+                         .read_text())
+    line = [x for x in proc.stdout.splitlines() if x.startswith("[dryrun]")]
+    if not (rec["ok"] and rec["device"] == "cuda" and rec["chips"] == 256
+            and rec["hlo_flops"] > 0 and rec["collective_bytes"] > 0
+            and line):
+        raise AssertionError(f"the production dry run's record: {rec}")
+    return dict(record=rec, line=line[0])
+
+
+def phase_dryrun(torch, dev) -> dict:
+    """24. The dry run against the card (see the module docstring)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.dryrun import dryrun_one
+    from repro_torch.launch.roofline import PEAK_BF16_S
+    step_s = {TRAIN_ARCH: RESULT["train_step"]["train"]["s_per_step"],
+              **{a: RESULT["kernel_train"][a]["s_per_step"]
+                 for a in KERNEL_TRAIN}}
+    out = {}
+    for arch, (b, s, micro) in DRYRUN_CARD.items():
+        t0 = time.perf_counter()
+        rec = dryrun_one(arch, ShapeConfig(f"card_b{b}_s{s}", s, b, "train"),
+                         mesh=(1, 1), device="cuda",
+                         variant={"micro": micro}, verbose=False)
+        trace_s = time.perf_counter() - t0
+        card = counted_step(torch, dev, arch, b, s, micro)
+        predicted = rec["argument_bytes_per_dev"] + rec["temp_bytes_per_dev"]
+        ratio = predicted / card["peak_bytes"]
+        ops = DRYRUN_OPS.get(get_config(arch).family, ())
+        share = card["flops"] / step_s[arch] / PEAK_BF16_S
+        res = dict(batch=b, seq=s, microbatches=micro, trace_s=trace_s,
+                   fake_flops=rec["traced_flops"],
+                   fake_op_bytes=rec["traced_op_bytes"],
+                   card_flops=card["flops"], card_op_bytes=card["op_bytes"],
+                   card_flops_by_op=card["by_op"],
+                   predicted_bytes=predicted,
+                   argument_bytes=rec["argument_bytes_per_dev"],
+                   temp_bytes=rec["temp_bytes_per_dev"],
+                   peak_bytes=card["peak_bytes"], predicted_over_peak=ratio,
+                   s_per_step=step_s[arch], bf16_peak_share=share,
+                   counted_step_s=card["counted_step_s"], loss=card["loss"])
+        out[arch] = res
+        log(f"dry run against the card, {arch} train (B={b}, S={s}, "
+            f"{micro} microbatches): FLOPs fake {rec['traced_flops']} card "
+            f"{card['flops']}, op bytes fake {rec['traced_op_bytes']} card "
+            f"{card['op_bytes']}; predicted argument + temp "
+            f"{predicted / 2 ** 30:.3f} GiB, max_memory_allocated "
+            f"{card['peak_bytes'] / 2 ** 30:.3f} GiB (ratio {ratio:.3f}); "
+            f"FLOPs / {step_s[arch]:.3f} s a step / 989e12 = {share:.4f}")
+        if not (rec["traced_flops"] == card["flops"]
+                and rec["traced_op_bytes"] == card["op_bytes"]
+                and all(card["by_op"].get(op, 0) > 0 for op in ops)
+                and 1 / PREDICTION_FACTOR <= ratio <= PREDICTION_FACTOR):
+            raise AssertionError(f"dry run against the card, {arch}: {res}")
+    prod = production_dryrun(torch)
+    log(f"production dry run: {prod['line']}")
+    ring = ring_on_card(torch, dev)
+    log(f"ring on the card (one-rank NCCL group): {ring}")
+    RESULT["dryrun"] = dict(card=out, production=prod, ring=ring)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3668,6 +3860,8 @@ def run_phases(torch) -> int:
     lap("22")
     kernel_train_counts = phase_kernel_train(torch, dev, profile)
     lap("23")
+    phase_dryrun(torch, dev)
+    lap("24")
 
     fl_path = f"FLServer smollm-135M, hungarian + joint, {FL_ROUNDS} rounds"
     paths = {

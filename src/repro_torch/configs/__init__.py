@@ -5,6 +5,9 @@ from repro_torch.configs.base import (
     FLConfig,
     ModelConfig,
     NOMAConfig,
+    SHAPES,
+    ShapeConfig,
+    all_configs,
     canon,
     get_config,
 )
@@ -16,6 +19,9 @@ __all__ = [
     "FLConfig",
     "ModelConfig",
     "NOMAConfig",
+    "SHAPES",
+    "ShapeConfig",
+    "all_configs",
     "canon",
     "get_config",
 ]

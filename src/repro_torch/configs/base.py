@@ -1,8 +1,9 @@
 """Config system of the PyTorch port: architecture config and the FL/NOMA
 system config.
 
-Copy of ``src/repro/configs/base.py`` (``ModelConfig``, ``NOMAConfig``,
-the axis registries and ``FLConfig`` with its eager validation). The
+Copy of ``src/repro/configs/base.py`` (``ModelConfig``, the input shapes
+``ShapeConfig`` and ``SHAPES``, ``NOMAConfig``, the axis registries,
+``FLConfig`` with its eager validation and ``all_configs``). The
 port keeps its own copy and imports nothing of ``repro``. Two registries
 differ from the reference, because they name the port's own axes:
 
@@ -175,6 +176,27 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
 # FL + NOMA system config (the paper)
 # ---------------------------------------------------------------------------
 
@@ -342,3 +364,7 @@ def get_config(arch: str) -> ModelConfig:
         raise ValueError(f"unknown architecture {arch!r} (known: "
                          f"{ARCH_IDS})")
     return importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

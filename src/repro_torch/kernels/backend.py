@@ -17,13 +17,16 @@ call fails.
 
 ``resolve_device`` is the one place the port turns a ``device`` argument
 into a ``torch.device``. Entry points default to ``"cuda"``; asking for it
-on a host without a card raises instead of running on the CPU.
+on a host without a card raises instead of running on the CPU, unless a
+``FakeTensorMode`` is active (the dry run's fake card, where nothing
+runs).
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+from torch._guards import detect_fake_mode
 
 from repro_torch.configs.base import KERNEL_BACKENDS
 from repro_torch.kernels import build
@@ -31,10 +34,14 @@ from repro_torch.kernels import build
 
 def resolve_device(device="cuda") -> torch.device:
     """``torch.device`` for an entry point's ``device`` argument. CUDA
-    without a visible card raises; only an explicit CPU runs on the CPU."""
+    without a visible card raises, except under an active
+    ``FakeTensorMode``; only an explicit CPU runs on the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
+            if detect_fake_mode() is not None:
+                # a fake trace (launch/dryrun.py): no card is touched
+                return torch.device("cuda", dev.index or 0)
             raise RuntimeError(
                 "device='cuda' but torch.cuda.is_available() is False; pass "
                 "device='cpu' explicitly to run the plain PyTorch versions "

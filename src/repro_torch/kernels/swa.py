@@ -64,8 +64,10 @@ gradient, the forward launches with a null lse pointer and saves nothing.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
@@ -161,31 +163,70 @@ def swa(q, k, v, *, window: int, softcap: float = 0.0, prefix: int = 0):
 
 
 def _forward(q, k, v, window, softcap, prefix, *, with_lse=False):
-    """The forward kernel on checked CUDA tensors. ``with_lse`` (bf16
-    only) also returns each row's log-sum-exp, (B, H, S) fp32, for the
-    backward: ``(out, lse)``."""
+    """The forward kernel on checked CUDA tensors, through the custom op
+    ``repro_torch::swa_fwd``. ``with_lse`` (bf16 only) also returns each
+    row's log-sum-exp, (B, H, S) fp32, for the backward: ``(out, lse)``."""
+    if with_lse and q.dtype != torch.bfloat16:
+        raise ValueError("swa writes lse for bf16 inputs only")
+    out, lse = torch.ops.repro_torch.swa_fwd(q, k, v, int(window),
+                                             float(softcap), int(prefix),
+                                             with_lse)
+    return (out, lse) if with_lse else out
+
+
+def band_pairs(s: int, window: int, prefix: int = 0) -> int:
+    """(query, key) pairs of a causal band of width ``window`` over ``s``
+    positions, with the prefix-LM band's extra pairs (keys j < prefix above
+    the diagonal, within the window since j > i)."""
+    w = min(window, s)
+    p = min(prefix, s)
+    return w * (w + 1) // 2 + (s - w) * w + p * (p - 1) // 2
+
+
+@torch.library.custom_op("repro_torch::swa_fwd", mutates_args=(),
+                         device_types="cuda")
+def _swa_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: int, softcap: float, prefix: int,
+                with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The launch of ``csrc/swa.cu``; lse is (B, H, S) with ``with_lse``,
+    else empty (the kernel gets a null pointer)."""
     dev = q.device
     b, s, h, hd = q.shape
     kh = k.shape[2]
-    if with_lse and q.dtype != torch.bfloat16:
-        raise ValueError("swa writes lse for bf16 inputs only")
     q, k, v = (build.aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
-    lse = (torch.empty((b, h, s), dtype=torch.float32, device=dev)
-           if with_lse else None)
+    lse = torch.empty((b, h, s) if with_lse else (0,), dtype=torch.float32,
+                      device=dev)
     if q.numel() == 0:
-        return (out, lse) if with_lse else out
+        return out, lse
     lib = build.load()
     code = lib.repro_swa(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(),
-                         None if lse is None else lse.data_ptr(),
+                         lse.data_ptr() if with_lse else None,
                          _DTYPES[q.dtype], b, s, h, kh, hd, int(window),
                          int(prefix), float(1.0 / math.sqrt(hd)),
                          float(softcap), dev.index,
                          torch.cuda.current_stream(dev).cuda_stream)
     build.count_launch(swa)
     build.check(code, "swa")
-    return (out, lse) if with_lse else out
+    return out, lse
+
+
+@_swa_fwd_op.register_fake
+def _(q, k, v, window, softcap, prefix, with_lse):
+    b, s, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, s) if with_lse else (0,),
+                        dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.swa_fwd)
+def swa_flops(q_shape, k_shape, v_shape, window, softcap, prefix, with_lse,
+              *args, **kwargs) -> int:
+    """The operations that the forward's bound prices: 4 hd a (query,
+    key) pair of the band, each query head."""
+    b, s, h, hd = q_shape
+    return 4 * hd * b * h * band_pairs(s, window, prefix)
 
 
 swa.launches = 0
@@ -318,6 +359,24 @@ def swa_bwd(q, k, v, dout, *, window: int, softcap: float = 0.0,
     if not bf16 and out is not None:
         raise ValueError("swa_bwd on fp32 CUDA tensors recomputes lse: pass "
                          "out=None, lse=None")
+    return torch.ops.repro_torch.swa_bwd(q, k, v, dout, out, lse,
+                                         int(window), float(softcap),
+                                         int(prefix))
+
+
+@torch.library.custom_op("repro_torch::swa_bwd", mutates_args=(),
+                         device_types="cuda")
+def _swa_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                dout: torch.Tensor, out: Optional[torch.Tensor],
+                lse: Optional[torch.Tensor], window: int, softcap: float,
+                prefix: int) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The launches of ``csrc/swa_bwd.cu`` (one count) with their
+    scratch."""
+    dev = q.device
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
     q, k, v = (build.aligned(t) for t in (q, k, v))
     dout = build.aligned(dout.to(q.dtype))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -349,6 +408,20 @@ def swa_bwd(q, k, v, dout, *, window: int, softcap: float = 0.0,
     build.count_launch(swa_bwd)
     build.check(code, "swa_bwd")
     return dq, dk, dv
+
+
+@_swa_bwd_op.register_fake
+def _(q, k, v, dout, out, lse, window, softcap, prefix):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.swa_bwd)
+def swa_bwd_flops(q_shape, k_shape, v_shape, dout_shape, out_shape_, lse_shape,
+                  window, softcap, prefix, *args, **kwargs) -> int:
+    """The operations that the backward's bound prices: 10 hd a (query,
+    key) pair of the band (five products of hd), each query head."""
+    b, s, h, hd = q_shape
+    return 10 * hd * b * h * band_pairs(s, window, prefix)
 
 
 swa_bwd.launches = 0

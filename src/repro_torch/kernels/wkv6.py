@@ -62,7 +62,10 @@ the forward launches exactly as before and keeps nothing.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
@@ -150,10 +153,12 @@ def _check_cuda(r, k, v, ins):
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise ValueError(f"wkv6 takes fp32 or bf16 r, k, v of one dtype, got "
                          f"{r.dtype}, {k.dtype}, {v.dtype}")
-    c = r.shape[3]
+    b, h, _, c = r.shape
     if c not in HEAD_SIZES:
         raise ValueError(f"wkv6 kernel takes head size in {HEAD_SIZES}, got "
                          f"{c}")
+    if b * h > 65535:
+        raise ValueError(f"wkv6 kernel takes B*H <= 65535, got {b * h}")
 
 
 def wkv6(r, k, v, w_log, u, s0=None, *, chunk: int = CHUNK):
@@ -178,11 +183,22 @@ def wkv6(r, k, v, w_log, u, s0=None, *, chunk: int = CHUNK):
 
 
 def _forward(r, k, v, w_log, u, s0, chunk):
-    """The forward kernels on checked CUDA tensors (w_log, u, s0 fp32):
-    (out, s_T, the chunk start states (B, H, ceil(T/64), C, C) or None
-    where no kernel ran)."""
+    """The forward kernels on checked CUDA tensors (w_log, u, s0 fp32),
+    through the custom op ``repro_torch::wkv6_fwd``: (out, s_T, the chunk
+    start states (B, H, ceil(T/64), C, C), empty where no kernel ran)."""
+    return torch.ops.repro_torch.wkv6_fwd(r, k, v, w_log, u, s0, int(chunk))
+
+
+@torch.library.custom_op("repro_torch::wkv6_fwd", mutates_args=(),
+                         device_types="cuda")
+def _wkv6_fwd_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w_log: torch.Tensor, u: torch.Tensor,
+                 s0: Optional[torch.Tensor], chunk: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The launches of ``csrc/wkv6.cu`` (one count) with their scratch."""
     dev = r.device
     b, h, t, c = r.shape
+    n = -(-t // KERNEL_CHUNK)
     r, k, v = (build.aligned(x) for x in (r, k, v))
     w_log = build.aligned(w_log)
     u = build.aligned(u)
@@ -190,14 +206,11 @@ def _forward(r, k, v, w_log, u, s0, chunk):
           if s0 is None else build.aligned(s0))
     out = torch.empty((b, h, t, c), dtype=torch.float32, device=dev)
     s_t = torch.empty((b, h, c, c), dtype=torch.float32, device=dev)
-    if b * h == 0:
-        return out, s_t, None
-    if t == 0:
-        return out, s_t.copy_(s0), None
-    if b * h > 65535:
-        raise ValueError(f"wkv6 kernel takes B*H <= 65535, got {b * h}")
-    n = -(-t // KERNEL_CHUNK)
     states = torch.empty((b, h, n, c, c), dtype=torch.float32, device=dev)
+    if b * h == 0:
+        return out, s_t, states
+    if t == 0:
+        return out, s_t.copy_(s0), states
     lp_end = torch.empty((b, h, n, c), dtype=torch.float32, device=dev)
     lib = build.load()
     code = lib.repro_wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -209,6 +222,23 @@ def _forward(r, k, v, w_log, u, s0, chunk):
     build.count_launch(wkv6)
     build.check(code, "wkv6")
     return out, s_t, states
+
+
+@_wkv6_fwd_op.register_fake
+def _(r, k, v, w_log, u, s0, chunk):
+    b, h, t, c = r.shape
+    f32 = dict(dtype=torch.float32)
+    return (r.new_empty((b, h, t, c), **f32), r.new_empty((b, h, c, c), **f32),
+            r.new_empty((b, h, -(-t // KERNEL_CHUNK), c, c), **f32))
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_fwd)
+def wkv6_flops(r_shape, *args, **kwargs) -> int:
+    """The recurrence's operations, as the forward's bound prices them
+    (which counts each three times over on the TF32 tensor cores): 5 C^2
+    a step and head."""
+    b, h, t, c = r_shape
+    return 5 * c * c * t * h * b
 
 
 wkv6.launches = 0
@@ -396,13 +426,28 @@ def wkv6_bwd(r, k, v, w_log, u, s0, dout, ds_T, *, states,
                 torch.zeros((h, c), dtype=torch.float32, device=dev),
                 torch.zeros((b, h, c, c), dtype=torch.float32, device=dev)
                 if ds_T is None else ds_T.to(torch.float32).clone())
-    if b * h > 65535:
-        raise ValueError(f"wkv6_bwd kernel takes B*H <= 65535, got {b * h}")
     n = -(-t // KERNEL_CHUNK)
     if states is None or tuple(states.shape) != (b, h, n, c, c):
         raise ValueError(f"wkv6_bwd takes the forward's states "
                          f"{(b, h, n, c, c)}, got "
                          f"{None if states is None else tuple(states.shape)}")
+    return torch.ops.repro_torch.wkv6_bwd(r, k, v, w_log, u, dout, ds_T,
+                                          states, int(chunk))
+
+
+@torch.library.custom_op("repro_torch::wkv6_bwd", mutates_args=(),
+                         device_types="cuda")
+def _wkv6_bwd_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w_log: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
+                 ds_T: Optional[torch.Tensor], states: torch.Tensor,
+                 chunk: int) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """The launches of ``csrc/wkv6_bwd.cu`` (one count) with their
+    scratch."""
+    dev = r.device
+    b, h, t, c = r.shape
+    n = -(-t // KERNEL_CHUNK)
     r, k, v = (build.aligned(x) for x in (r, k, v))
     w_log, u = build.aligned(w_log), build.aligned(u)
     dout = build.aligned(dout.to(torch.float32))
@@ -430,6 +475,24 @@ def wkv6_bwd(r, k, v, w_log, u, s0, dout, ds_T, *, states,
     build.count_launch(wkv6_bwd)
     build.check(code, "wkv6_bwd")
     return dr, dk, dv, dw, du, ds0
+
+
+@_wkv6_bwd_op.register_fake
+def _(r, k, v, w_log, u, dout, ds_T, states, chunk):
+    b, h, t, c = r.shape
+    f32 = dict(dtype=torch.float32)
+    return (*(r.new_empty((b, h, t, c)) for _ in range(3)),
+            r.new_empty((b, h, t, c), **f32), r.new_empty((h, c), **f32),
+            r.new_empty((b, h, c, c), **f32))
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_bwd)
+def wkv6_bwd_flops(r_shape, *args, **kwargs) -> int:
+    """The gradient's operations, as the backward's bound prices them
+    (each three times over on the TF32 tensor cores): 14 C^2 a step and
+    head."""
+    b, h, t, c = r_shape
+    return 14 * c * c * t * h * b
 
 
 wkv6_bwd.launches = 0

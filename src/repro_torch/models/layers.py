@@ -5,7 +5,7 @@ Counterpart of ``src/repro/models/layers.py`` (``rms_norm``,
 ``rope_angles``/``apply_rope``, ``sinusoid_pos_emb``,
 ``qkv_proj``/``out_proj``,
 ``_pick_chunk``, ``_direct_attention``, ``flash_attention``,
-``decode_attention``,
+``ring_flash_attention``, ``decode_attention``,
 ``init_kv_cache``, ``cache_write``, the GLU MLP). Weights keep the
 reference's ``(in, out)`` layout and are applied as ``x @ W``, so
 converting the reference's parameters is a plain copy (convert.py).
@@ -37,10 +37,19 @@ included: the CUDA sliding-window kernel for CUDA tensors, the same direct
 math with the band for CPU tensors. Non-causal attention (the encoder's,
 and cross-attention over the encoder memory, whose lengths differ) takes
 the direct or the chunked path by its size.
+
+``ring_flash_attention`` is the context-parallel prefill of the dense and
+moe families (``zoo.make_prefill_step(ring=)``): each rank holds a
+sequence chunk of q, k, v as DTensors, and K and V travel the ring of the
+sequence axis by ``torch.distributed``'s ``permute_tensor`` under
+``local_map`` (the reference's ``shard_map`` and ``ppermute``). Plain
+PyTorch: the reference computes it in ``jnp`` outside any Pallas kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -264,6 +273,132 @@ def flash_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
                              prefix_len=prefix_len)
 
 
+@dataclasses.dataclass(frozen=True)
+class Ring:
+    """The context-parallel ring of a prefill: a ``DeviceMesh``, its batch
+    axis (a mesh dim name, or a tuple of them) and its sequence axis. Each
+    rank holds the (batch shard, sequence chunk) at its coordinates."""
+    mesh: Any
+    batch_axis: Any
+    seq_axis: str
+
+    def _names(self, axes) -> tuple:
+        return (axes,) if isinstance(axes, str) else tuple(axes)
+
+    def _size(self, name: str) -> int:
+        return self.mesh.size(self.mesh.mesh_dim_names.index(name))
+
+    def coord(self, axes) -> tuple[int, int]:
+        """(this rank's index, the group's size) over ``axes`` (row-major
+        over a tuple of mesh dims)."""
+        idx, n = 0, 1
+        for a in self._names(axes):
+            idx = idx * self._size(a) + self.mesh.get_local_rank(a)
+            n *= self._size(a)
+        return idx, n
+
+    def rank_coords(self) -> list[tuple[int, int]]:
+        """(batch index, sequence index) of every global rank, in rank
+        order."""
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        names = list(self.mesh.mesh_dim_names)
+        with unset_fake_temporarily():
+            ranks = self.mesh.mesh.flatten().tolist()
+        out = [None] * len(ranks)
+        for flat, r in enumerate(ranks):
+            at, rest = {}, flat
+            for a in reversed(names):
+                at[a], rest = rest % self._size(a), rest // self._size(a)
+            b = 0
+            for a in self._names(self.batch_axis):
+                b = b * self._size(a) + at[a]
+            out[r] = (b, at[self.seq_axis])
+        return out
+
+    def placements(self, spec) -> tuple:
+        """DTensor placements of a spec naming ``"batch"`` and ``"seq"``
+        dims (None for the others)."""
+        from repro_torch.models.zoo import placements
+        axes = {"batch": self.batch_axis, "seq": self.seq_axis}
+        return placements(tuple(axes.get(e) for e in spec), self.mesh)
+
+    def shard(self, local, spec):
+        """A DTensor on the mesh from this rank's ``local`` piece."""
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(local, self.mesh, self.placements(spec),
+                                  run_check=False)
+
+
+def ring_flash_attention(q, k, v, cfg: ModelConfig, mesh, *,
+                         batch_axis="data", seq_axis="model",
+                         causal: bool = True):
+    """Context-parallel (ring) causal attention for prefill
+    (``layers.ring_flash_attention`` of the reference). q (B,S,H,hd), k/v
+    (B,S,KH,hd) are DTensors sharded over (``batch_axis``, ``seq_axis``)
+    of ``mesh``; S divides by the sequence axis' size. Each rank keeps its
+    query chunk and runs the reference's loop under ``local_map``: fp32
+    products, a running max and sum over ``n_ring`` steps, between which
+    K and V rotate to the next rank of the sequence axis
+    (``permute_tensor``; the reference's rotation after the last step,
+    whose result nothing reads, is left out). Returns the output as a
+    DTensor sharded as q. Forward only."""
+    from torch.distributed._functional_collectives import permute_tensor
+    from torch.distributed.tensor.experimental import local_map
+    ring = Ring(mesh, batch_axis, seq_axis)
+    seq_dim = mesh.mesh_dim_names.index(seq_axis)
+    n_ring = mesh.size(seq_dim)
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    if s % n_ring:
+        raise ValueError(f"ring attention: S={s} does not split over "
+                         f"{n_ring} ranks")
+    scale = 1.0 / math.sqrt(hd)
+    perm = [(j + 1) % n_ring for j in range(n_ring)]   # rank j sends to j+1
+
+    def local(qc, kc, vc):
+        my = mesh.get_local_rank(seq_axis)
+        bl, lq = qc.shape[0], qc.shape[1]
+        qf = qc.reshape(bl, lq, kh, g, hd).float() * scale
+        pos = torch.arange(lq, device=qc.device)
+        q_pos = my * lq + pos
+        acc = torch.zeros((bl, kh, g, lq, hd), dtype=torch.float32,
+                          device=qc.device)
+        m = torch.full((bl, kh, g, lq), float("-inf"), device=qc.device)
+        l = torch.zeros((bl, kh, g, lq), device=qc.device)
+        kv_k, kv_v = kc, vc
+        for i in range(n_ring):
+            src = (my - i) % n_ring
+            k_pos = src * lq + pos
+            s_ = torch.einsum("bqkgh,bskh->bkgqs", qf, kv_k.float())
+            if cfg.logit_softcap > 0.0:
+                s_ = cfg.logit_softcap * torch.tanh(s_ / cfg.logit_softcap)
+            if causal:
+                mask = k_pos[None, :] <= q_pos[:, None]
+                s_ = s_.masked_fill(~mask, float("-inf"))
+            m_new = torch.maximum(m, s_.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s_ - m_safe[..., None])
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskh->bkgqh", p, kv_v.float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+            if i == n_ring - 1:
+                break           # the reference's last rotation is unused
+            # rotate K and V to the next rank of the ring (permute_tensor
+            # splits its input's first dim by element counts: flat)
+            kv_k, kv_v = (permute_tensor(t.reshape(-1), perm,
+                                         (mesh, seq_dim)).view(t.shape)
+                          for t in (kv_k, kv_v))
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        return out.permute(0, 3, 1, 2, 4).reshape(bl, lq, h, hd).to(qc.dtype)
+
+    pl = ring.placements(("batch", "seq", None, None))
+    return local_map(local, out_placements=(pl,), in_placements=(pl, pl, pl),
+                     device_mesh=mesh)(q, k, v)
+
+
 def decode_attention(q, k_cache, v_cache, valid_mask, cfg: ModelConfig):
     """Single-token attention against a (ring or linear) KV cache.
     q (B,1,H,hd); k_cache/v_cache (B,S,KH,hd); valid_mask (B,S) bool.
@@ -346,15 +481,24 @@ class Attention(nn.Module):
         b, s = attn_out.shape[:2]
         return attn_out.reshape(b, s, -1) @ self.wo
 
-    def forward(self, x, cos, sin, *, window: int = 0, prefix_len: int = 0):
-        """Full-sequence attention (``_attn_seq`` of the reference).
+    def forward(self, x, cos, sin, *, window: int = 0, prefix_len: int = 0,
+                ring: Ring | None = None):
+        """Full-sequence attention (``_attn_seq`` of the reference); with
+        ``ring``, x is this rank's (batch shard, sequence chunk) and the
+        attention is ``ring_flash_attention`` over the ring's mesh.
         Returns (out (B,S,D), (k, v) post-RoPE)."""
         cfg = self.cfg
         q, k, v = self.qkv_proj(x)
         q = apply_rope(q, cos, sin, cfg.rope_frac)
         k = apply_rope(k, cos, sin, cfg.rope_frac)
-        out = flash_attention(q, k, v, cfg, causal=True, window=window,
-                              prefix_len=prefix_len)
+        if ring is not None:
+            spec = ("batch", "seq", None, None)
+            out = ring_flash_attention(
+                *(ring.shard(t, spec) for t in (q, k, v)), cfg, ring.mesh,
+                batch_axis=ring.batch_axis, seq_axis=ring.seq_axis).to_local()
+        else:
+            out = flash_attention(q, k, v, cfg, causal=True, window=window,
+                                  prefix_len=prefix_len)
         return self.out_proj(out), (k, v)
 
 

@@ -23,6 +23,13 @@ their gates in x's dtype.
 
 ``moe_shard_hints`` of the reference is a mesh hint with no meaning on
 one card, and is not ported.
+
+Under the ring prefill (``apply_moe(ring=)``) a rank holds a batch shard
+and a sequence chunk of the tokens. The reference routes the whole
+batch at once, so its capacity is set by every token and a token's
+queue place counts every earlier token of the flattened (B * S) order;
+``ring_queue_positions`` gets the same places from an all-gather of each
+rank's per-row counts, so the same choices drop.
 """
 from __future__ import annotations
 
@@ -58,8 +65,8 @@ class MoE(nn.Module):
         self.wo = nn.Parameter(torch.empty(e, f, d, dtype=dtype,
                                            device=device))
 
-    def forward(self, x):
-        return apply_moe(self, x, self.cfg)
+    def forward(self, x, ring=None):
+        return apply_moe(self, x, self.cfg, ring=ring)
 
 
 def _count(idx, n: int):
@@ -83,13 +90,55 @@ def queue_positions(gate_idx, n_experts: int):
     return pos.reshape(k, t).T
 
 
-def apply_moe(p: MoE, x, cfg: ModelConfig):
+def ring_queue_positions(gate_idx, n_experts: int, ring, rows: int):
+    """Queue places of this rank's (token, choice)s as over the whole
+    batch: gate_idx (T, k) of its ``rows`` x L tokens (a batch shard and a
+    sequence chunk of a ``layers.Ring``), in the reference's order over
+    the flattened (B * S) tokens, every token's choice 0 before any
+    token's choice 1. Each place is the count of earlier choices to its
+    expert: those of lower choice anywhere, of rows before its row, of
+    its row's earlier chunks (from an all-gather of every rank's (rows, k,
+    E) counts) and of its chunk's earlier tokens."""
+    import torch.distributed as dist
+    from torch.distributed._functional_collectives import all_gather_tensor
+    t, k = gate_idx.shape
+    e = n_experts
+    bi, nb = ring.coord(ring.batch_axis)
+    si, ns = ring.coord(ring.seq_axis)
+    oh = F.one_hot(gate_idx.reshape(rows, t // rows, k), e)   # (r, L, k, E)
+    counts = oh.sum(dim=1)                                    # (r, k, E)
+    gathered = all_gather_tensor(counts[None], 0, dist.group.WORLD)
+    order = [0] * (nb * ns)
+    for r, (b_r, s_r) in enumerate(ring.rank_coords()):
+        order[b_r * ns + s_r] = r
+    g = gathered[torch.tensor(order, device=gate_idx.device)]  # (nb*ns, ...)
+    g = g.reshape(nb, ns, rows, k, e).permute(3, 0, 2, 1, 4).reshape(
+        k, nb * rows, ns, e)                                  # (k, B, ns, E)
+    per_choice = g.sum(dim=(1, 2))                            # (k, E)
+    per_row = g.sum(dim=2)                                    # (k, B, E)
+    mine = slice(bi * rows, (bi + 1) * rows)
+    base = ((torch.cumsum(per_choice, 0) - per_choice)[:, None]
+            + (torch.cumsum(per_row, 1) - per_row)[:, mine]
+            + (torch.cumsum(g, 2) - g)[:, mine, si])          # (k, r, E)
+    in_chunk = (torch.cumsum(oh, 1) - oh).gather(
+        -1, gate_idx.reshape(rows, t // rows, k, 1))[..., 0]  # (r, L, k)
+    before = base.permute(1, 0, 2)[:, None].expand(-1, t // rows, -1, -1)
+    return (before.gather(-1, gate_idx.reshape(rows, t // rows, k, 1))[..., 0]
+            + in_chunk).reshape(t, k)
+
+
+def apply_moe(p: MoE, x, cfg: ModelConfig, ring=None):
     """x (B, S, D) -> (out (B, S, D) in x's dtype, Switch load-balance aux
-    loss, a 0-dim fp32 tensor)."""
+    loss, a 0-dim fp32 tensor). With ``ring`` (a ``layers.Ring``), x is
+    this rank's (batch shard, sequence chunk) of the ring prefill: the
+    capacity is the whole batch's and the queue places are as over the
+    whole batch (``ring_queue_positions``), so the same choices drop; the
+    kept ones fill a buffer of min(capacity, T) rows an expert (the most
+    of this rank's tokens an expert can keep), and the aux loss is this
+    rank's."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
-    cap = moe_capacity(t, cfg)
 
     xt = x.reshape(t, d)
     probs = torch.softmax(xt.float() @ p.router, dim=-1)       # (T, E)
@@ -97,8 +146,18 @@ def apply_moe(p: MoE, x, cfg: ModelConfig):
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
 
-    pos = queue_positions(gate_idx, e)                         # (T, k)
-    keep = pos < cap
+    if ring is None:
+        cap = moe_capacity(t, cfg)
+        pos = queue_positions(gate_idx, e)                     # (T, k)
+        keep = pos < cap
+    else:
+        n_ranks = ring.coord(ring.batch_axis)[1] * ring.coord(
+            ring.seq_axis)[1]
+        keep = ring_queue_positions(gate_idx, e, ring, b) < moe_capacity(
+            t * n_ranks, cfg)
+        cap = min(moe_capacity(t * n_ranks, cfg), t)
+        # this rank's place in its expert's buffer, the dropped ones last
+        pos = queue_positions(torch.where(keep, gate_idx, e), e + 1)
 
     # Switch load-balance loss (eq. 4): top-1 density times mean router prob
     density = _count(gate_idx[:, 0], e).float() / t

@@ -15,6 +15,12 @@ reference, whatever the model dtype.
 The moe family is the dense block with ``moe`` (models/moe.py) in the
 place of ``mlp``; ``forward`` sums the layers' load-balance losses.
 
+``forward(ring=)`` is the context-parallel prefill of the dense and moe
+families (the ring branch of the reference's ``_attn_seq``): this rank's
+sequence chunk at its global positions, attention by
+``layers.ring_flash_attention``, the MoE's queue places as over the whole
+batch (``moe.apply_moe(ring=)``).
+
 The vlm family (paligemma) is the dense decoder with a ``prefix_proj``
 (prefix_dim, D): ``forward(tokens, prefix=)`` projects the prefix (the
 stubbed image patches) and puts it before the text, runs positions
@@ -81,11 +87,11 @@ class Block(nn.Module):
         else:
             self.mlp = L.MLP(cfg, dtype, device)
 
-    def _ffn(self, x):
+    def _ffn(self, x, ring=None):
         """The residual's MLP (or expert) update and its aux loss."""
         h = L.rms_norm(x, self.ln2, self.eps)
         if self.cfg.is_moe:
-            return self.moe(h)
+            return self.moe(h, ring=ring)
         return self.mlp(h), None
 
     def _fuse(self, x, attn_out, ssm_out):
@@ -93,11 +99,12 @@ class Block(nn.Module):
                        + L.rms_norm(ssm_out, self.ln_ssm_o, self.eps))
         return x + fused
 
-    def forward(self, x, cos, sin, *, window: int = 0, prefix_len: int = 0):
+    def forward(self, x, cos, sin, *, window: int = 0, prefix_len: int = 0,
+                ring=None):
         """Returns (x_out, aux or None, (k, v), new_states or None)."""
         h = L.rms_norm(x, self.ln1, self.eps)
         attn_out, kv = self.attn(h, cos, sin, window=window,
-                                 prefix_len=prefix_len)
+                                 prefix_len=prefix_len, ring=ring)
         states = None
         if self.cfg.family == "hybrid":
             ssm_out, h_last = SSM.ssm_scan(self.ssm, h)
@@ -105,7 +112,7 @@ class Block(nn.Module):
             states = {"ssm_h": h_last}
         else:
             x = x + attn_out
-        ffn, aux = self._ffn(x)
+        ffn, aux = self._ffn(x, ring)
         return x + ffn, aux, kv, states
 
     def decode(self, x, cache: dict, pos: int, *, ring: bool):
@@ -223,10 +230,10 @@ class DecoderLM(nn.Module):
             self.prefix_proj = nn.Parameter(torch.empty(
                 cfg.prefix_dim, cfg.d_model, dtype=dtype, device=device))
 
-    def embed_inputs(self, tokens, prefix=None):
+    def embed_inputs(self, tokens, prefix=None, start: int = 0):
         """tokens (B, S) [+ prefix (B, P, prefix_dim)] -> (x (B, P + S, D),
         P) (``embed_inputs`` of the reference); NoPE configs add the
-        sinusoid embedding at positions 0..P+S-1."""
+        sinusoid embedding at positions start..start+P+S-1."""
         cfg = self.cfg
         x = self.embed[tokens]
         prefix_len = 0
@@ -234,12 +241,12 @@ class DecoderLM(nn.Module):
             x = torch.cat([prefix.to(x.dtype) @ self.prefix_proj, x], dim=1)
             prefix_len = prefix.shape[1]
         if cfg.rope_frac == 0.0 and cfg.n_heads:
-            x = L.add_positions(x)
+            x = L.add_positions(x, start)
         return x, prefix_len
 
     def forward(self, tokens, prefix=None, *, window: int = 0,
                 collect_cache: bool = False, last_only: bool = False,
-                with_aux: bool = False, remat: bool = True):
+                with_aux: bool = False, remat: bool = True, ring=None):
         """tokens (B, S) int [+ prefix (B, P, prefix_dim) of a vlm config]
         -> logits (B, P + S, padded_vocab) (``last_only``: (B, 1, V)); with
         ``collect_cache`` also the stacked per-layer cache (k, v post-RoPE
@@ -248,9 +255,19 @@ class DecoderLM(nn.Module):
         logits[, cache][, aux]. ``window`` > 0 is sliding-window attention;
         the hybrid family takes ``cfg.long_context_window`` for 0.
         ``remat`` recomputes each layer in the backward (a no-op under
-        ``torch.no_grad()``)."""
+        ``torch.no_grad()``). With ``ring`` (a ``layers.Ring``; the dense
+        and moe families, no window, no prefix) ``tokens`` is this rank's
+        (batch shard, sequence chunk): positions are global, attention is
+        the ring's and the MoE routes as over the whole batch."""
         cfg = self.cfg
-        x, prefix_len = self.embed_inputs(tokens, prefix)
+        start = 0
+        if ring is not None:
+            if cfg.family not in ("dense", "moe") or window or prefix \
+                    is not None:
+                raise ValueError("the ring runs the dense and moe families "
+                                 "without a window or a prefix")
+            start = ring.coord(ring.seq_axis)[0] * tokens.shape[1]
+        x, prefix_len = self.embed_inputs(tokens, prefix, start)
         b, s = x.shape[:2]
         caches: dict = {}
         aux = 0.0
@@ -272,13 +289,13 @@ class DecoderLM(nn.Module):
         else:
             if cfg.family == "hybrid" and window == 0:
                 window = cfg.long_context_window
-            positions = torch.arange(s, device=tokens.device)
+            positions = torch.arange(start, start + s, device=tokens.device)
             cos, sin = L.rope_angles(positions, _rope_dim(cfg),
                                      cfg.rope_theta)
             for i, blk in enumerate(self.blocks):
                 x, layer_aux, (k, v), st = L.remat_call(
                     blk, x, cos, sin, window=window, prefix_len=prefix_len,
-                    remat=remat)
+                    remat=remat, ring=ring)
                 if layer_aux is not None:
                     aux = aux + layer_aux
                 if collect_cache:
