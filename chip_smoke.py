@@ -2412,38 +2412,27 @@ def phase_fedagg_rows(torch, dev, srv, kinfo):
 
 
 def phase_profile(torch, srv):
-    """Optional (``--profile``), after the main path: one more round with
-    synchronised host timers around its stages, then one under
-    ``torch.profiler`` for the kernels' device time and the device's busy
-    share of the round."""
-    import repro_torch.fl.server as server_mod
+    """Optional (``--profile``), after the main path: one more round under
+    the port's tracer, its stages read from the program's fenced spans,
+    then one under ``torch.profiler`` for the kernels' device time and the
+    device's busy share of the round."""
+    from repro_torch.obs import trace
+    stages = (("server.select", "schedule"),
+              ("client.local_update", "local_sgd"),
+              ("server.aggregate", "fedagg"), ("server.apply", "apply"))
+    with trace.tracing() as tr:
+        t0 = time.perf_counter()
+        srv.run_round()
+        round_s = time.perf_counter() - t0
     spans: dict = {}
-
-    def timed(name, fn):
-        def wrapped(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t
-            return out
-        return wrapped
-
-    stages = ((srv, "select", "schedule"),
-              (srv.trainer, "local_update", "local_sgd"),
-              (server_mod, "aggregate_deltas", "fedagg"),
-              (server_mod, "apply_aggregate", "apply"))
-    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
-    for obj, attr, name in stages:
-        setattr(obj, attr, timed(name, getattr(obj, attr)))
-    t0 = time.perf_counter()
-    srv.run_round()
-    spans["round"] = time.perf_counter() - t0
+    for name, key in stages:
+        hits = [s.duration_s for s in tr.spans if s.name == name]
+        if hits:
+            spans[key] = sum(hits)
+    spans["round"] = round_s
     t0 = time.perf_counter()
     srv.evaluate()
     spans["evaluate"] = time.perf_counter() - t0
-    for obj, attr, fn in saved:
-        setattr(obj, attr, fn)
     RESULT["profile"] = dict(spans_s=spans,
                              round=profile_call(torch, srv.run_round))
     log(f"profile: {RESULT['profile']}")

@@ -80,9 +80,14 @@ Tracing spans (obs/trace.py, off by default) mark the reference's sites:
 ``engine.schedule_batch``, ``engine.mc_loop``, and the stages the
 reference's numpy planner marks (``plan.admit``, ``plan.joint``,
 ``plan.finalize``, ``plan.evict``, ``plan.multicell``) at their
-counterparts here. A live span fences its stage's outputs; a split
-Monte-Carlo run traces from several threads, which one tracer does not
-keep apart.
+counterparts here. A Monte-Carlo rollout adds ``mc.round`` (``i``, ``s``,
+``n``) around each round, holding ``plan.priority`` (compute times and
+the policy's priority), the schedule's stages and ``plan.diag`` (the age
+update and the round's diagnostics); ``plan.compact`` (the admitted set's
+mask sort and rank sort, inside ``plan.finalize``) and ``plan.admit``
+count the keys their sorts take (``keys``). A live span drains the device at entry and
+fences its stage's outputs at exit; a split Monte-Carlo run traces from
+several threads, which one tracer does not keep apart.
 """
 from __future__ import annotations
 
@@ -317,7 +322,9 @@ def _fast_finish(cand, gains, t_cmp, n_samples, model_bits,
     odd = c % 2
     c_pair = c - odd
     m = c_pair // 2
-    sg_c, sid_c = _sort_admitted(cand, gains, c)
+    with trace.span("plan.compact", fenced=True, keys=b * (n + c)) as sp:
+        sg_c, sid_c = _sort_admitted(cand, gains, c)
+        sp.fence(sg_c, sid_c)
     score = lambda g_i, g_j: pairscore.pairscore(g_i, g_j, n0b=n0b,
                                                  pmax=pmax, bw=bw, oma=oma)
 
@@ -517,20 +524,21 @@ def _fast_schedule_batch(priority, gains, t_cmp, n_samples, model_bits,
     """Greedy admission -> finish; ``selection="joint"`` also refines the
     admitted set and keeps the refined schedule only where strictly
     faster under the active pairing policy."""
-    n = gains.shape[-1]
-    with trace.span("plan.admit", n=n, slots=c) as sp:
+    b, n = gains.shape
+    with trace.span("plan.admit", fenced=True, n=n, slots=c,
+                    keys=2 * b * n if c < n else 0) as sp:
         cand = _admit(priority, gains, c)
         sp.fence(cand)
-    with trace.span("plan.finalize", n=n) as sp:
+    with trace.span("plan.finalize", fenced=True, n=n) as sp:
         out = _fast_finish(cand, gains, t_cmp, n_samples, model_bits, prm,
                            oma, c, pairing)
         sp.fence(out.t_round)
     if selection == "joint" and 0 < c < n:
-        with trace.span("plan.joint", n=n) as sp:
+        with trace.span("plan.joint", fenced=True, n=n) as sp:
             refined = _joint_refine_mask(cand, gains, t_cmp, model_bits,
                                          prm, oma, c)
             sp.fence(refined)
-        with trace.span("plan.finalize", n=n) as sp:
+        with trace.span("plan.finalize", fenced=True, n=n) as sp:
             out = _pick_faster(_fast_finish(refined, gains, t_cmp,
                                             n_samples, model_bits, prm, oma,
                                             c, pairing), out)
@@ -690,14 +698,15 @@ def _budget_schedule(priority, gains, t_cmp, n_samples, model_bits,
     n_pairs = max((c + 1) // 2, 1)
     rows = torch.arange(b, device=dev)
     pos = torch.arange(n, device=dev)
-    with trace.span("plan.admit", n=n, slots=c) as sp:
+    with trace.span("plan.admit", fenced=True, n=n, slots=c,
+                    keys=2 * b * n) as sp:
         order = _admission_order(priority, gains)
         cand0 = torch.zeros((b, n), dtype=torch.bool, device=dev).scatter_(
             1, order[:, :c], True)
         sp.fence(cand0)
 
     def sched_of(cand):
-        with trace.span("plan.finalize", n=n) as sp:
+        with trace.span("plan.finalize", fenced=True, n=n) as sp:
             strong, weak, rates, powers = _assemble(
                 cand, gains, t_cmp, model_bits, prm, oma, n_pairs, pairing)
             t_com = model_bits[:, None] / torch.clamp(rates, min=1e-9)
@@ -707,7 +716,7 @@ def _budget_schedule(priority, gains, t_cmp, n_samples, model_bits,
 
     s0 = sched_of(cand0)
     if selection == "joint" and 0 < c < n:
-        with trace.span("plan.joint", n=n) as sp:
+        with trace.span("plan.joint", fenced=True, n=n) as sp:
             refined = _joint_refine_mask(cand0, gains, t_cmp, model_bits,
                                          prm, oma, c)
             sp.fence(refined)
@@ -726,7 +735,7 @@ def _budget_schedule(priority, gains, t_cmp, n_samples, model_bits,
         if iters == n:
             raise RuntimeError("budget loop ran past its n-iteration bound")
         iters += 1
-        with trace.span("plan.evict", n=n) as sp:
+        with trace.span("plan.evict", fenced=True, n=n) as sp:
             worst = st.tot.argmax(dim=1)
             cand = st.cand.clone()
             cand[rows, worst] = False
@@ -792,7 +801,7 @@ def _multicell_schedule(priority, gains, t_cmp, n_samples, model_bits,
     math gives them rate 0, and the merge drops them. A cell with fewer
     real members than slots admits padding on the fast path, as the
     reference engine does (DESIGN.md section 10)."""
-    with trace.span("plan.multicell", n=gains.shape[1],
+    with trace.span("plan.multicell", fenced=True, n=gains.shape[1],
                     n_cells=n_cells) as sp:
         b, n = gains.shape
         tbl = _cell_member_table(cell, n_cells, cap)
@@ -915,7 +924,7 @@ class WirelessEngine:
         sig = ("schedule_batch", b, n, no_budget, oma,
                pairing or self.pairing, selection or self.selection,
                cell is not None, priority is None, str(self.device))
-        with trace.span("engine.schedule_batch", b=b, n=n,
+        with trace.span("engine.schedule_batch", fenced=True, b=b, n=n,
                         cold=trace.cold(sig)) as sp:
             out = self._schedule_batch_impl(
                 gains, n_samples, cpu_freq, ages, model_bits,
@@ -1110,34 +1119,38 @@ class WirelessEngine:
                 "t_up_bottleneck", "n_evicted", "aou_hist")
         out = {k: [] for k in keys}
         handovers = []
-        with trace.span("engine.mc_loop", rounds=rounds,
+        with trace.span("engine.mc_loop", fenced=True, rounds=rounds,
                         policy=policy) as sp:
             for i in range(rounds):
-                gains, n_samples, cpu_freq, cell = env_fn(i)
-                if ages is None:
-                    ages = torch.ones(gains.shape, dtype=torch.float32,
-                                      device=device)
-                    part = torch.zeros(gains.shape, dtype=torch.float32,
-                                       device=device)
-                    multicell = n_cells > 1 and cell is not None
+                with trace.span("mc.round", fenced=True, i=i) as rs:
+                    gains, n_samples, cpu_freq, cell = env_fn(i)
                     s, n = gains.shape
-                    sp.note(s=s, n=n, cold=trace.cold(
-                        ("mc", s, n, policy, pairing, selection,
-                         float(t_budget), multicell, str(device))))
-                ages, part, diag = _montecarlo_step(
-                    ages, part, gains, n_samples, cpu_freq, mb, i, gen,
-                    cell if multicell else None, prm=self.prm,
-                    gamma=self.flcfg.age_exponent, policy=policy,
-                    t_budget=float(t_budget), pairing=pairing,
-                    selection=selection, n_cells=n_cells, block=block)
-                for k in keys:
-                    out[k].append(diag[k])
-                if multicell:
-                    handovers.append(
-                        torch.zeros(gains.shape[0], dtype=torch.int64,
-                                    device=device) if prev_cell is None
-                        else (cell != prev_cell).sum(dim=1))
-                    prev_cell = cell
+                    rs.note(s=s, n=n)
+                    if ages is None:
+                        ages = torch.ones(gains.shape, dtype=torch.float32,
+                                          device=device)
+                        part = torch.zeros(gains.shape,
+                                           dtype=torch.float32,
+                                           device=device)
+                        multicell = n_cells > 1 and cell is not None
+                        sp.note(s=s, n=n, cold=trace.cold(
+                            ("mc", s, n, policy, pairing, selection,
+                             float(t_budget), multicell, str(device))))
+                    ages, part, diag = _montecarlo_step(
+                        ages, part, gains, n_samples, cpu_freq, mb, i, gen,
+                        cell if multicell else None, prm=self.prm,
+                        gamma=self.flcfg.age_exponent, policy=policy,
+                        t_budget=float(t_budget), pairing=pairing,
+                        selection=selection, n_cells=n_cells, block=block)
+                    for k in keys:
+                        out[k].append(diag[k])
+                    if multicell:
+                        handovers.append(
+                            torch.zeros(gains.shape[0], dtype=torch.int64,
+                                        device=device) if prev_cell is None
+                            else (cell != prev_cell).sum(dim=1))
+                        prev_cell = cell
+                    rs.fence(ages)
             sp.fence(ages)
         out = {k: torch.stack(v) for k, v in out.items()}
         out["participation"] = part
@@ -1201,20 +1214,22 @@ def _montecarlo_step(ages, part, gains, n_samples, cpu_freq, model_bits,
     cap = n if cell is None else cell_capacity(n, n_cells, prm.slots)
     c = min(prm.slots, cap)
     oma = policy == "oma_age"
-    t_cmp = _compute_times(prm, n_samples, cpu_freq)
     mb = model_bits.expand(s)
-    if policy in ("age_noma", "age_noma_budget", "oma_age"):
-        prio = _age_priority(ages, n_samples, gamma)
-    elif policy == "channel":
-        prio = gains
-    elif policy == "random":
-        total = s if block is None else block[2]
-        prio = torch.rand((total, n), generator=gen, device=gains.device)
-        if block is not None:
-            prio = prio[block[0]:block[1]]
-    else:                                           # round_robin
-        prio = round_robin_priority(round_idx, n, c,
-                                    gains.device).expand(s, n)
+    with trace.span("plan.priority", fenced=True) as sp:
+        t_cmp = _compute_times(prm, n_samples, cpu_freq)
+        if policy in ("age_noma", "age_noma_budget", "oma_age"):
+            prio = _age_priority(ages, n_samples, gamma)
+        elif policy == "channel":
+            prio = gains
+        elif policy == "random":
+            total = s if block is None else block[2]
+            prio = torch.rand((total, n), generator=gen, device=gains.device)
+            if block is not None:
+                prio = prio[block[0]:block[1]]
+        else:                                       # round_robin
+            prio = round_robin_priority(round_idx, n, c,
+                                        gains.device).expand(s, n)
+        sp.fence(t_cmp, prio)
     tb = None if t_budget <= 0.0 else torch.full(
         (s,), t_budget, dtype=torch.float32, device=gains.device)
     if cell is not None:
@@ -1227,11 +1242,14 @@ def _montecarlo_step(ages, part, gains, n_samples, cpu_freq, model_bits,
     else:
         sched = _budget_schedule(prio, gains, t_cmp, n_samples, mb, tb, prm,
                                  oma, c, pairing, selection)
-    sel = sched.selected
-    ages = torch.where(sel, 1.0, ages + 1.0)
-    diag = schedule_diag(sched, ages)
-    diag["max_age"] = ages.amax(dim=1)
-    return ages, part + sel, diag
+    with trace.span("plan.diag", fenced=True) as sp:
+        sel = sched.selected
+        ages = torch.where(sel, 1.0, ages + 1.0)
+        diag = schedule_diag(sched, ages)
+        diag["max_age"] = ages.amax(dim=1)
+        part = part + sel
+        sp.fence(ages, part, diag)
+    return ages, part, diag
 
 
 def _check_pairing(pairing: str) -> str:

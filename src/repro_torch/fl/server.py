@@ -53,6 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.configs.base import FLConfig, ModelConfig, NOMAConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import aoi, plan
@@ -288,29 +289,57 @@ class FLServer:
         return t_round
 
     def run_round(self) -> Schedule:
-        gains, env_n_samples, env_cpu = self.scenario.step(self.rng)
-        env = RoundEnv(gains=gains, n_samples=env_n_samples,
-                       cpu_freq=env_cpu, ages=self.ages,
-                       model_bits=self.model_bits)
-        sched = self.select(env)
+        """One round (steps 1-6 above). Spans: ``server.round`` (fenced on
+        the model; ``r``, the selected ids, local ``steps`` and ``tokens``
+        and the kernel wrappers' ``launches`` in the round) holds
+        ``server.scenario``, ``server.select``, one ``client.local_update``
+        a selected client (fl/client.py), then ``server.aggregate`` and
+        ``server.apply`` (``rows``), or the predictor's spans."""
+        tracing = trace.get_tracer().enabled
+        if tracing:
+            steps0, tokens0 = self.trainer.steps, self.trainer.tokens
+            launches0 = kernels.launch_counts()
+        with trace.span("server.round", fenced=True,
+                        r=self.round_idx) as sp:
+            with trace.span("server.scenario"):
+                gains, env_n_samples, env_cpu = self.scenario.step(self.rng)
+            env = RoundEnv(gains=gains, n_samples=env_n_samples,
+                           cpu_freq=env_cpu, ages=self.ages,
+                           model_bits=self.model_bits)
+            with trace.span("server.select", fenced=True):
+                sched = self.select(env)
 
-        sel = np.flatnonzero(sched.selected)
-        for row, ci in enumerate(sel):
-            batches = client_batches(self.rng, self.clients[ci],
-                                     self.fl.local_batch,
-                                     self.fl.local_epochs)
-            self.trainer.local_update(self.model, batches, self.deltas[row])
-        self.pred_stats = dict(_NO_PREDICTION)
-        if len(sel) and self.predictor is None:
-            agg = aggregate_deltas(self.deltas[:len(sel)],
-                                   self.n_samples[sel])
-            apply_aggregate(self.model, agg)
-        elif len(sel):
-            self._aggregate_with_predictions(sel)
+            sel = np.flatnonzero(sched.selected)
+            for row, ci in enumerate(sel):
+                batches = client_batches(self.rng, self.clients[ci],
+                                         self.fl.local_batch,
+                                         self.fl.local_epochs)
+                self.trainer.local_update(self.model, batches,
+                                          self.deltas[row])
+            self.pred_stats = dict(_NO_PREDICTION)
+            if len(sel) and self.predictor is None:
+                with trace.span("server.aggregate", fenced=True,
+                                rows=len(sel)) as ag:
+                    agg = aggregate_deltas(self.deltas[:len(sel)],
+                                           self.n_samples[sel])
+                    ag.fence(agg)
+                with trace.span("server.apply", fenced=True,
+                                rows=len(sel)):
+                    apply_aggregate(self.model, agg)
+            elif len(sel):
+                self._aggregate_with_predictions(sel)
 
-        self.ages = aoi.update_ages(self.ages, sched.selected)
-        self.t_sim += sched.t_round
-        self.round_idx += 1
+            self.ages = aoi.update_ages(self.ages, sched.selected)
+            self.t_sim += sched.t_round
+            self.round_idx += 1
+            if tracing:
+                launches = kernels.launch_counts()
+                sp.note(selected=sel.tolist(),
+                        steps=self.trainer.steps - steps0,
+                        tokens=self.trainer.tokens - tokens0,
+                        launches={k: v - launches0[k]
+                                  for k, v in launches.items()})
+            sp.fence(list(self.model.parameters()))
         return sched
 
     def _aggregate_with_predictions(self, sel: np.ndarray) -> None:
@@ -321,7 +350,7 @@ class FLServer:
         k = len(sel)
         real = self.deltas[:k]
         data_w = self.n_samples / self.n_samples.sum()
-        with trace.span("predictor.observe", k=k) as sp:
+        with trace.span("predictor.observe", fenced=True, k=k) as sp:
             stats = pred.observe(sel, real, self.ages, data_w)
             sp.fence(pred.store_sk)
 
@@ -331,14 +360,14 @@ class FLServer:
         selected[sel] = True
         targets = pred.predictable(selected, self.ages)
         m = len(targets)
-        with trace.span("predictor.predict", m=m) as sp:
+        with trace.span("predictor.predict", fenced=True, m=m) as sp:
             pred.predict(targets, self.ages, data_w, mean_flat,
                          out=self.deltas[k:k + m])
             sp.fence(self.deltas)
         w_pred = (self.n_samples[targets] * self.fl.pred_blend
                   * aoi.age_discount(self.ages[targets],
                                      self.fl.pred_discount))
-        with trace.span("server.blend", rows=k + m) as sp:
+        with trace.span("server.blend", fenced=True, rows=k + m) as sp:
             agg = blend_deltas(self.deltas[:k + m], w_real, w_pred)
             sp.fence(agg)
         apply_aggregate(self.model, agg)
@@ -372,8 +401,7 @@ class FLServer:
         multicell = self.fl.n_cells > 1
         prev_cell = self.scenario.cell.copy()
         for r in range(rounds):
-            with trace.span("server.round", r=r):
-                sched = self.run_round()
+            sched = self.run_round()
             part += sched.selected
             if r % self.eval_every == 0 or r == rounds - 1:
                 acc, loss = self.evaluate()

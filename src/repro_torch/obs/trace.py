@@ -3,31 +3,40 @@
 Counterpart of ``src/repro/obs/trace.py``. A ``Span`` is one timed region
 of host code (a planner stage, an engine dispatch, a server round),
 recorded on a monotonic clock (``time.perf_counter``) with explicit
-nesting. Three contracts:
+nesting: its name, start, duration, parent and the counts its caller
+notes at the same boundary. A layer's self time is its span minus its
+children. Four contracts:
 
-* **fencing**: a CUDA launch returns before the work finishes, so a span
-  that closes without synchronising measures the enqueue, not the work.
-  ``handle.fence(tensors)`` registers outputs whose CUDA devices are
-  synchronised at span exit (a no-op for CPU tensors).
+* **fencing at both ends**: a CUDA launch returns before the work
+  finishes, so a span that closes without synchronising measures the
+  enqueue, not the work. A span opened with ``fenced=True`` drains the
+  current CUDA device at entry, so it holds no work queued before it, and
+  at exit synchronises the devices of the outputs registered with
+  ``handle.fence(tensors)`` (the current device when none is on a card).
+  Its duration is the work launched inside it. Other spans never
+  synchronise; they time the host and annotate the profiler's timeline.
+* **one clock with the device trace**: whenever a ``torch.profiler`` is
+  recording, every span opens ``torch.profiler.record_function(name)``,
+  whether the tracer is on or not, so the profiler's timeline (and
+  ``profile(outdir)``'s Chrome trace) shows the spans beside the kernels
+  and names each idle gap by the innermost span.
 * **first-call split**: the first call of a kernel path pays the lazy
   ``nvcc`` build and the library load (kernels/build.py) on top of the
   work. Spans carry a ``cold`` flag (``Tracer.cold(key)`` marks the first
-  sighting of a signature); ``compile_split`` times one first call apart
-  from a steady one.
-* **zero cost when disabled**: the global tracer is off by default and the
-  disabled ``span`` is a shared no-op context (no allocation, no
-  synchronisation), so the instrumentation stays on the hot paths.
+  sighting of a signature).
+* **zero cost when disabled**: the global tracer is off by default; with
+  it off and no profiler recording, ``span`` returns a shared no-op
+  context (no allocation, no synchronisation) after two flag reads, so the
+  instrumentation stays on the hot paths.
 
 Usage::
 
     from repro_torch.obs import trace
     with trace.tracing() as tr:
-        with trace.span("engine.schedule_batch") as sp:
+        with trace.span("engine.schedule_batch", fenced=True) as sp:
             out = eng.schedule_batch(...)
             sp.fence(out.t_round)
     print(trace.format_report(tr.summarize()))
-
-``profile(outdir)`` wraps ``torch.profiler`` for the device timeline.
 """
 from __future__ import annotations
 
@@ -35,13 +44,14 @@ import contextlib
 import dataclasses
 import os
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Optional
 
 import torch
+from torch.autograd import profiler as _profiler
 
 __all__ = [
     "Span", "Tracer", "tracing", "span", "cold", "get_tracer", "set_tracer",
-    "fence", "compile_split", "profile", "summarize", "format_report",
+    "fence", "profile", "summarize", "format_report",
 ]
 
 
@@ -60,9 +70,10 @@ class Span:
         return dataclasses.asdict(self)
 
 
-def fence(*objs) -> None:
+def fence(*objs) -> int:
     """Synchronise the CUDA device of every tensor in ``objs`` (tensors, or
-    lists, tuples and dicts of them); CPU tensors need nothing."""
+    lists, tuples and dicts of them); CPU tensors need nothing. Returns
+    the number of devices synchronised."""
     devices = set()
     stack = list(objs)
     while stack:
@@ -76,18 +87,30 @@ def fence(*objs) -> None:
             stack.extend(x)
     for dev in devices:
         torch.cuda.synchronize(dev)
+    return len(devices)
+
+
+def _drain() -> None:
+    """Wait for the work queued on the current CUDA device (nothing where
+    CUDA was never initialised)."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 class _Handle:
     """The object a live ``span(...)`` yields: attach fences + metadata."""
-    __slots__ = ("_fences", "meta")
+    __slots__ = ("_fences", "_name", "meta")
 
-    def __init__(self, meta: dict):
-        self._fences: list = []
+    def __init__(self, name: str, fenced: bool, meta: dict):
+        self._fences: Optional[list] = [] if fenced else None
+        self._name = name
         self.meta = meta
 
     def fence(self, *tensors) -> None:
         """Register tensors whose devices are synchronised at exit."""
+        if self._fences is None:
+            raise ValueError(f"span {self._name!r} does not fence: open it "
+                             f"with fenced=True")
         self._fences.extend(tensors)
 
     def note(self, **meta) -> None:
@@ -122,27 +145,61 @@ class _NullCtx:
 _NULL_CTX = _NullCtx()
 
 
+def _annotation(name: str):
+    """A profiler annotation over the block while a profiler records,
+    else None."""
+    if not _profiler._is_profiler_enabled:
+        return None
+    rf = _profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+class _AnnotationCtx:
+    """The span of a disabled tracer while a profiler records: an
+    annotation on its timeline, nothing recorded, no synchronisation."""
+    __slots__ = ("_name", "_rf")
+
+    def __init__(self, name: str):
+        self._name = name
+
+    def __enter__(self):
+        self._rf = _annotation(self._name)
+        return _NULL_HANDLE
+
+    def __exit__(self, *exc):
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
+
+
 class _SpanCtx:
     """Live span context manager (a plain class: cheaper than a
     ``@contextmanager`` generator on hot paths)."""
-    __slots__ = ("_tracer", "_name", "_cold", "_handle", "_t0")
+    __slots__ = ("_tracer", "_name", "_cold", "_handle", "_t0", "_rf")
 
-    def __init__(self, tracer: "Tracer", name: str, cold: bool, meta: dict):
+    def __init__(self, tracer: "Tracer", name: str, cold: bool,
+                 fenced: bool, meta: dict):
         self._tracer = tracer
         self._name = name
         self._cold = cold
-        self._handle = _Handle(meta)
+        self._handle = _Handle(name, fenced, meta)
 
     def __enter__(self):
+        if self._handle._fences is not None:
+            _drain()
+        self._rf = _annotation(self._name)
         self._tracer._stack.append(self._name)
         self._t0 = time.perf_counter()
         return self._handle
 
     def __exit__(self, *exc):
         h = self._handle
-        if h._fences:
-            fence(*h._fences)
+        if h._fences is not None and not fence(*h._fences):
+            _drain()
         dt = time.perf_counter() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         tr = self._tracer
         tr._stack.pop()
         depth = len(tr._stack)
@@ -157,8 +214,9 @@ class _SpanCtx:
 
 
 class Tracer:
-    """Span collector. ``enabled=False`` makes every ``span`` a shared
-    no-op. Not thread-safe by design: one tracer per calling thread."""
+    """Span collector. ``enabled=False`` makes every ``span`` a profiler
+    annotation while a profiler records, else a shared no-op. Not
+    thread-safe by design: one tracer per calling thread."""
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
@@ -166,10 +224,13 @@ class Tracer:
         self._stack: list[str] = []
         self._seen: set = set()
 
-    def span(self, name: str, *, cold: Optional[bool] = None, **meta):
-        if not self.enabled:
-            return _NULL_CTX
-        return _SpanCtx(self, name, bool(cold), meta)
+    def span(self, name: str, *, cold: Optional[bool] = None,
+             fenced: bool = False, **meta):
+        if self.enabled:
+            return _SpanCtx(self, name, bool(cold), fenced, meta)
+        if _profiler._is_profiler_enabled:
+            return _AnnotationCtx(name)
+        return _NULL_CTX
 
     def cold(self, key: Any) -> bool:
         """True exactly once per ``key``: mark the first call of a
@@ -202,9 +263,14 @@ def set_tracer(tracer: Tracer) -> Tracer:
     return old
 
 
-def span(name: str, *, cold: Optional[bool] = None, **meta):
-    """Open a span on the global tracer (no-op context when disabled)."""
-    return _TRACER.span(name, cold=cold, **meta)
+def span(name: str, *, cold: Optional[bool] = None, fenced: bool = False,
+         **meta):
+    """Open a span on the global tracer (``fenced``: drain the device at
+    entry and synchronise the registered outputs at exit; a profiler
+    annotation only, or a no-op context, when the tracer is disabled)."""
+    if not (_TRACER.enabled or _profiler._is_profiler_enabled):
+        return _NULL_CTX
+    return _TRACER.span(name, cold=cold, fenced=fenced, **meta)
 
 
 def cold(key: Any) -> bool:
@@ -223,27 +289,15 @@ def tracing(enabled: bool = True):
         set_tracer(old)
 
 
-# -- first call against a steady call ----------------------------------------
-
-
-def compile_split(fn: Callable, *args, **kwargs) -> tuple:
-    """Call ``fn`` twice, each call fenced: returns ``(out, {"first_s",
-    "steady_s"})``. On a fresh process the first call includes the lazy
-    kernel build and the library load; the second is the steady cost."""
-    times = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        fence(out)
-        times.append(time.perf_counter() - t0)
-    return out, {"first_s": times[0], "steady_s": times[1]}
+# -- the device timeline ----------------------------------------------------
 
 
 @contextlib.contextmanager
 def profile(outdir: str):
     """``torch.profiler`` over the block (CPU, and CUDA where a card is
-    visible); writes ``outdir/trace.json`` (a Chrome trace) at exit and
-    yields the profiler (``key_averages()`` for sums by kernel)."""
+    visible); writes ``outdir/trace.json`` (a Chrome trace of the spans,
+    host operations and kernels on one clock) at exit and yields the
+    profiler (``key_averages()`` for sums by kernel)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     acts = [ProfilerActivity.CPU]

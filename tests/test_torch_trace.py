@@ -84,16 +84,187 @@ def test_summarize_and_report():
 
 
 def test_fence_compile_split_and_profile(tmp_path):
+    """``fence`` synchronises no device for CPU tensors; ``profile``
+    exports the port's spans and the operations on one clock."""
     x = torch.arange(6.0)
-    trace.fence(x, [x, {"k": (x,)}], "not a tensor")   # CPU: nothing to do
-    out, split = trace.compile_split(torch.add, x, 1.0)
-    assert torch.equal(out, x + 1.0)
-    assert set(split) == {"first_s", "steady_s"}
-    assert all(v >= 0 for v in split.values())
-    with trace.profile(str(tmp_path / "prof")) as prof:
-        torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+    # CPU: nothing to do
+    assert trace.fence(x, [x, {"k": (x,)}], "not a tensor") == 0
+    with trace.tracing() as tr, \
+            trace.profile(str(tmp_path / "prof")) as prof:
+        with trace.span("port.mm"):
+            torch.mm(torch.ones(8, 8), torch.ones(8, 8))
     assert any("mm" in e.key for e in prof.key_averages())
-    assert json.loads((tmp_path / "prof" / "trace.json").read_text())
+    assert [s.name for s in tr.spans] == ["port.mm"]
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    ev = {e["name"]: e for e in events["traceEvents"] if "ts" in e}
+    assert "port.mm" in ev and "aten::mm" in ev
+    span, mm = ev["port.mm"], ev["aten::mm"]
+    assert span["ts"] <= mm["ts"]
+    assert mm["ts"] + mm["dur"] <= span["ts"] + span["dur"]
+
+
+@pytest.mark.parametrize("tracer_on", [True, False])
+def test_span_opens_a_profiler_annotation(tracer_on):
+    """Under ``torch.profiler`` every span is an annotation of the
+    profiler's timeline, with the tracer on and with it off; with
+    neither, the shared no-op context."""
+    from torch.profiler import ProfilerActivity, profile
+    assert trace.span("a") is trace.span("b")
+    with trace.tracing(enabled=tracer_on) as tr:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            assert (trace.span("a") is trace.span("b")) is False
+            with trace.span("port.outer", fenced=True) as sp:
+                with trace.span("port.inner"):
+                    torch.add(torch.ones(4), 1.0)
+                sp.fence(torch.ones(1))
+    assert trace.span("a") is trace.span("b")
+    keys = {e.key for e in prof.key_averages()}
+    assert {"port.outer", "port.inner"} <= keys
+    assert [s.name for s in tr.spans] == (
+        ["port.inner", "port.outer"] if tracer_on else [])
+
+
+def test_fenced_span_drains_at_entry_and_exit(monkeypatch):
+    """A live fenced span synchronises the device at entry and at exit;
+    an annotation span never does, and nothing does with the tracer
+    off."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: calls.append(device))
+    with trace.tracing() as tr:
+        with trace.span("fenced", fenced=True) as sp:
+            assert len(calls) == 1           # drained at entry
+            sp.fence(torch.zeros(2))         # CPU: the current device
+        assert len(calls) == 2
+        with trace.span("annotation") as sp:
+            with pytest.raises(ValueError, match="fenced=True"):
+                sp.fence(torch.zeros(2))
+        assert len(calls) == 2
+    assert [s.name for s in tr.spans] == ["fenced", "annotation"]
+    with trace.span("off", fenced=True) as sp:
+        sp.fence(torch.zeros(2))
+    assert len(calls) == 2
+
+
+def _tree_of(spans, root):
+    """The spans inside each ``root`` span (by time), each root's in
+    start order."""
+    trees = []
+    for top in (s for s in spans if s.name == root):
+        end = top.t_start + top.duration_s
+        trees.append((top, sorted(
+            (s for s in spans if s is not top and s.depth > top.depth
+             and top.t_start <= s.t_start
+             and s.t_start + s.duration_s <= end),
+            key=lambda s: s.t_start)))
+    return trees
+
+
+def test_fl_round_span_tree():
+    """One traced ``run_round`` without the predictor: the server and
+    client spans nested as the call tree, one ``client.local_update`` a
+    selected client, and steps and tokens equal to the batches each
+    client trained on."""
+    from repro_torch import kernels
+    srv = FLServer(dataclasses.replace(get_config("smollm_135m").reduced(),
+                                       **TINY_KW),
+                   FLConfig(n_clients=8, local_batch=8, lr=0.2,
+                            samples_per_client=(16, 40)),
+                   NOMAConfig(n_subchannels=2),
+                   TaskConfig(vocab_size=32, n_topics=4, seq_len=17),
+                   device="cpu")
+    srv.run_round()
+    trained = []
+    local_update = srv.trainer.local_update
+
+    def recorded(model, batches, delta_out):
+        batches = list(batches)
+        trained.append([b.size for b in batches])
+        return local_update(model, batches, delta_out)
+
+    srv.trainer.local_update = recorded
+    with trace.tracing() as tr:
+        sched = srv.run_round()
+    sel = np.flatnonzero(sched.selected).tolist()
+    assert len(sel) == len(trained) > 0
+    [(top, inside)] = _tree_of(tr.spans, "server.round")
+    assert top.parent is None and top.meta["r"] == 1
+    assert top.meta["selected"] == sel
+    assert top.meta["steps"] == sum(len(t) for t in trained)
+    assert top.meta["tokens"] == sum(map(sum, trained))
+    assert set(top.meta["launches"]) == set(kernels.WRAPPERS)
+    parent = {"server.scenario": "server.round",
+              "server.select": "server.round",
+              "engine.schedule_batch": "server.select",
+              "client.local_update": "server.round",
+              "client.step": "client.local_update",
+              "client.upload": "client.step",
+              "client.forward": "client.step",
+              "client.backward": "client.step",
+              "client.sgd": "client.step",
+              "client.delta": "client.local_update",
+              "server.aggregate": "server.round",
+              "server.apply": "server.round"}
+    assert len(inside) == len(tr.spans) - 1
+    for s in inside:
+        if s.name in parent:
+            assert s.parent == parent[s.name], s.name
+        else:
+            assert s.name.startswith("plan."), s.name
+    order = [s.name for s in inside if s.parent == "server.round"]
+    assert order == (["server.scenario", "server.select"]
+                     + ["client.local_update"] * len(sel)
+                     + ["server.aggregate", "server.apply"])
+    updates = [s for s in inside if s.name == "client.local_update"]
+    assert [u.meta for u in updates] == [
+        {"steps": len(t), "tokens": sum(t)} for t in trained]
+    steps = [s for s in inside if s.name == "client.step"]
+    assert [s.meta["tokens"] for s in steps] == [x for t in trained
+                                                 for x in t]
+    for name in ("server.aggregate", "server.apply"):
+        [agg] = [s for s in inside if s.name == name]
+        assert agg.meta == {"rows": len(sel)}
+    for step in steps:
+        kids = [s.name for s in inside if s.parent == "client.step"
+                and step.t_start <= s.t_start
+                <= step.t_start + step.duration_s]
+        assert kids == ["client.upload", "client.forward",
+                        "client.backward", "client.sgd"]
+
+
+def test_mc_round_span_tree():
+    """A 3-round ``montecarlo_rounds``: each ``mc.round`` holds
+    ``plan.priority``, ``plan.admit``, ``plan.finalize`` (holding
+    ``plan.compact``) and ``plan.diag``, in that order and without
+    overlap, with the keys the sorts take."""
+    rng = np.random.default_rng(1)
+    eng = WirelessEngine(NOMAConfig(n_subchannels=2), FLConfig(),
+                         device="cpu")
+    b, n = 4, 12
+    c = min(eng.prm.slots, n)
+    with trace.tracing() as tr:
+        eng.montecarlo_rounds(rng.exponential(size=(3, b, n)) * 1e-9,
+                              np.full((b, n), 50.0), np.full((b, n), 1e9),
+                              1e6, policy="age_noma")
+    trees = _tree_of(tr.spans, "mc.round")
+    assert [top.meta for top, _ in trees] == [
+        {"i": i, "s": b, "n": n} for i in range(3)]
+    for top, inside in trees:
+        assert top.parent == "engine.mc_loop"
+        stages = [s for s in inside if s.parent == "mc.round"]
+        assert [s.name for s in stages] == ["plan.priority", "plan.admit",
+                                            "plan.finalize", "plan.diag"]
+        for a, z in zip(stages, stages[1:]):
+            assert a.t_start + a.duration_s <= z.t_start
+        [compact] = [s for s in inside if s.name == "plan.compact"]
+        assert compact.parent == "plan.finalize"
+        fin = stages[2]
+        assert fin.t_start <= compact.t_start
+        assert (compact.t_start + compact.duration_s
+                <= fin.t_start + fin.duration_s)
+        assert compact.meta == {"keys": b * (n + c)}
+        assert stages[1].meta["keys"] == 2 * b * n
 
 
 def test_fl_round_spans_with_the_predictor():
